@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an NVIDIA H100.
+
+    python3 chip_smoke.py [--seed N]
+
+Needs one CUDA card and the repository around this file; imports no JAX.
+Three phases, each fatal on failure:
+
+1. build: compile every CUDA kernel of scope_tpu_torch from csrc/ with
+   nvcc (one process per source, all started together).
+2. kernels: hold each kernel against its plain PyTorch version on the
+   card, at the head shapes of Llama-3.2-1B and Llama-3.1-8B, a ragged S,
+   a sliding window and logits scaled by 8 (bf16 inputs, the plain version
+   in float32 on the same values; then the kernels on those float32
+   values, held tightly), and time kernel, plain version and, for the
+   attention half only, F.scaled_dot_product_attention.
+3. main path: a small model on the card (kernels) against the CPU (plain
+   versions), then Llama-3.2-1B at full width and depth with random bf16
+   weights: H2O prefill (P=2048, w=8) of a 3000-token prompt in the 4096
+   bucket, then 384 greedy tokens of SCOPE jump decode (W=512, r=256,
+   delta=30), with per-query-head and per-kv-head eviction.  Every kernel
+   launch counter is set to 0 just before each run and read just after.
+
+Prints the card's name and power limit, a {"kernels": [...]} line and, as
+the last line, {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+W = 8                       # H2O prefill window of the main path
+DEVICE = "cuda"
+
+
+def sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of fn over iters calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# name: (B, H, S, D, true_len, sliding_window, logit scale)
+KERNEL_CASES = {
+    "1b_heads": (2, 32, 4096, 64, (4096, 3001), None, 1.0),
+    "8b_heads": (1, 32, 2048, 128, (1999,), None, 1.0),
+    "ragged_s1000": (2, 8, 1000, 64, (1000, 913), None, 1.0),
+    "window64": (1, 8, 2048, 64, (2048,), 64, 1.0),
+    "logits_x8": (1, 8, 2048, 64, (1800,), None, 8.0),
+    "main_path": (1, 32, 4096, 64, (3000,), None, 1.0),
+}
+# (rtol, atol) with bf16 inputs, the plain version in float32 on the same
+# values.  out: the kernel rounds each probability to bf16 before PV (up
+# to 2^-9 of each term) and writes bf16.  Where a few keys carry a row's
+# weight (early rows, logits x8) and their values cancel, that rounding
+# alone moves out by up to ~2.6e-3 against |out| ~ 2e-3, so atol cannot be
+# much below 5e-3; the float32 check below is the tight one.  m2 / l2 /
+# colsum: float32 sums in another order.
+TOL = {"out": (2e-2, 5e-3), "m2": (1e-4, 1e-4), "l2": (1e-3, 1e-3),
+       "colsum": (1e-3, 1e-3)}
+# The kernels again on the float32 values, where nothing is rounded and
+# the sums differ only in order: rtol = atol for every output, looser at
+# logits x8 (as tests/test_torch_cuda_kernels.py).  Late rows have |out|
+# ~ 0.03, and a dropped or mis-masked 64-key tile moves them by ~3e-3, far
+# past these tolerances.
+TOL_F32 = {1.0: 2e-4, 8.0: 1e-3}
+TOPK_MIN = 0.995
+OUTPUTS = ("out", "m2", "l2", "colsum")
+
+
+def kernel_inputs(case, seed):
+    B, H, S, D, tl, window, scale = KERNEL_CASES[case]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(sc):
+        return (torch.randn((B, H, S, D), generator=g, device=DEVICE) * sc
+                ).to(torch.bfloat16)
+    q, k, v = rnd(scale), rnd(scale), rnd(1.0)
+    return q, k, v, torch.tensor(tl, dtype=torch.int32, device=DEVICE)
+
+
+def topk_agreement(cs, ref, tl):
+    """Worst kept-set agreement over (row, head): top half of
+    [0, true_len - w) by the kernel's and the plain version's scores."""
+    from scope_tpu_torch.compression.policies import topk_indices
+    worst = 1.0
+    for b, n in enumerate(tl):
+        region = n - W
+        kk = region // 2
+        a = topk_indices(cs[b, :, :region], kk)
+        r = topk_indices(ref[b, :, :region], kk)
+        hit = torch.zeros((a.shape[0], region), dtype=torch.bool,
+                          device=a.device)
+        hit.scatter_(1, a, True)
+        same = hit.gather(1, r).float().mean(dim=1)
+        worst = min(worst, float(same.min()))
+    return worst
+
+
+def run_kernels(fp, q, k, v, ttl, window):
+    out, m2, l2 = fp.flash_prefill(q, k, v, ttl, window_size=W,
+                                   need_scores=True, sliding_window=window)
+    return out, m2, l2, fp.colsum_scores(q, k, ttl, m2, l2, window_size=W)
+
+
+def compare(what, got, ref, tl, tol):
+    """Fail unless |got - ref| <= atol + rtol * |ref| for every output
+    (out / m2 / l2 over the real rows, colsum over all keys).  Returns
+    each output's max abs error and the least atol it needed at its
+    rtol."""
+    err, need = {}, {}
+    for name, g, r in zip(OUTPUTS, got, ref):
+        rtol, atol = tol[name]
+        parts = ([(g, r)] if name == "colsum" else
+                 [(g[b, :, :n], r[b, :, :n]) for b, n in enumerate(tl)])
+        err[name] = need[name] = 0.0
+        for g_, r_ in parts:
+            g_ = g_.float()
+            if not torch.isfinite(g_).all():
+                fail(f"{what}: non-finite {name}")
+            d = (g_ - r_).abs()
+            err[name] = max(err[name], float(d.max()))
+            need[name] = max(need[name], float((d - rtol * r_.abs()).max()))
+        if need[name] > atol:
+            fail(f"{what}: {name} off by up to {err[name]:.3g}; needs atol "
+                 f"{need[name]:.3g} at rtol {rtol} (tolerance {atol})")
+    return err, need
+
+
+def fmt(d):
+    return " ".join(f"{n}={d[n]:.3g}" for n in OUTPUTS)
+
+
+def check_kernels(seed):
+    from scope_tpu_torch.ops import flash_prefill as fp
+    timing = {}
+    for i, case in enumerate(KERNEL_CASES):
+        B, H, S, D, tl, window, scale = KERNEL_CASES[case]
+        q, k, v, ttl = kernel_inputs(case, seed + i)
+        got = run_kernels(fp, q, k, v, ttl, window)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        got32 = run_kernels(fp, qf, kf, vf, ttl, window)
+        ro, rm2, rl2 = fp.flash_prefill_reference(
+            qf, kf, vf, ttl, window_size=W, need_scores=True,
+            sliding_window=window)
+        ref = (ro, rm2, rl2, fp.colsum_scores_reference(
+            qf, kf, ttl, rm2, rl2, window_size=W))
+        sync()
+        err, need = compare(f"{case} bf16", got, ref, tl, TOL)
+        t32 = TOL_F32[scale]
+        err32, _ = compare(f"{case} float32", got32, ref, tl,
+                           {n: (t32, t32) for n in OUTPUTS})
+        cs, rcs = got[3], ref[3]
+        agree = topk_agreement(cs, rcs, tl)
+        if agree < TOPK_MIN:
+            fail(f"{case}: colsum top-k agreement {agree:.4f} < {TOPK_MIN}")
+        print(f"kernels {case}: B={B} H={H} S={S} D={D} true_len={tl} "
+              f"window={window} logits x{scale:g}; bf16 max_abs_err "
+              f"{fmt(err)}, least atol needed {fmt(need)}; float32 "
+              f"max_abs_err {fmt(err32)} (tolerance {t32}); "
+              f"topk_agree={agree:.4f}", flush=True)
+        if case == "main_path":
+            m2, l2 = got[1], got[2]
+            timing = time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2,
+                                  rl2, err)
+    return timing
+
+
+def bounds(B, H, S, D, n_real, elem_bytes):
+    """Least time for each function on these inputs (ms, bound_by): the
+    larger of bytes / HBM rate and matmul operations / bf16 peak.  exps
+    are not counted (the table has no rate for them).  Only the n_real
+    rows before true_len count: nothing reads the outputs of pad rows
+    (colsum masks them, later layers mask pad keys, the logits take the
+    last real token), so S is not used."""
+    # flash: QK^T for every real row against every real key (the scoring
+    # side covers them all), PV for the causal pairs; q/k/v read, out /
+    # m2 / l2 written for the real rows.
+    att_pairs = n_real * (n_real + 1) // 2
+    flash_ops = B * H * (2 * D * n_real * n_real + 2 * D * att_pairs)
+    flash_bytes = B * H * n_real * (4 * D * elem_bytes + 2 * 4) + 4 * B
+    # colsum: QK^T over real rows x real keys; q/k/m2/l2 read, colsum
+    # written.
+    cs_ops = B * H * 2 * D * n_real * n_real
+    cs_bytes = B * H * n_real * (2 * D * elem_bytes + 3 * 4) + 4 * B
+    out = {}
+    for name, ops, nbytes in (("flash_prefill", flash_ops, flash_bytes),
+                              ("colsum_scores", cs_ops, cs_bytes)):
+        t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
+    B, H, S, D = q.shape
+    n_real = min(int(ttl[0]), S)
+    t = {
+        "flash_prefill": cuda_ms(lambda: fp.flash_prefill(
+            q, k, v, ttl, window_size=W, need_scores=True), 10),
+        "colsum_scores": cuda_ms(lambda: fp.colsum_scores(
+            q, k, ttl, m2, l2, window_size=W), 10),
+        "flash_prefill_plain": cuda_ms(lambda: fp.flash_prefill_reference(
+            qf, kf, vf, ttl, window_size=W, need_scores=True), 3),
+        "colsum_scores_plain": cuda_ms(lambda: fp.colsum_scores_reference(
+            qf, kf, ttl, rm2, rl2, window_size=W), 3),
+        "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10),
+    }
+    t["bounds"] = bounds(B, H, S, D, n_real, q.element_size())
+    t["err"] = err
+    print(f"kernel times at the main path's shape (B={B} H={H} S={S} D={D} "
+          f"true_len={n_real} bf16): flash_prefill {t['flash_prefill']:.3f} "
+          f"ms (plain {t['flash_prefill_plain']:.3f}, SDPA causal "
+          f"{t['sdpa']:.3f} as a yardstick for the attention half only), "
+          f"colsum_scores {t['colsum_scores']:.3f} ms (plain "
+          f"{t['colsum_scores_plain']:.3f})", flush=True)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+def reset_launches():
+    from scope_tpu_torch.ops import flash_prefill as fp
+    fp.flash_prefill.launches = 0
+    fp.colsum_scores.launches = 0
+
+
+def read_launches():
+    from scope_tpu_torch.ops import flash_prefill as fp
+    return {"flash_prefill": fp.flash_prefill.launches,
+            "colsum_scores": fp.colsum_scores.launches}
+
+
+def small_model_check(seed):
+    """Kernels (card) against plain versions (CPU) through the whole path:
+    a 2-layer model with Llama head shapes, float32, identical tokens."""
+    from scope_tpu_torch import CompressionConfig, EngineConfig, ModelSpec
+    from scope_tpu_torch.engine.generate import generate
+    from scope_tpu_torch.models import llama
+    spec = ModelSpec(name="smoke-small", vocab_size=512, hidden_size=256,
+                     intermediate_size=512, num_layers=2, num_heads=4,
+                     num_kv_heads=2, head_dim=64)
+    comp = CompressionConfig(method="h2o", decoding_metric="jump",
+                             max_capacity_prompt=64, window_size=8,
+                             decoding_window_size=32,
+                             decoding_recent_size=16, delta=3)
+    ecfg = EngineConfig(max_prompt_len=256, max_new_tokens=48,
+                        dtype="float32")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_cpu = llama.init_params(spec, g, torch.float32, device="cpu")
+    p_gpu = {n: a.to(DEVICE) for n, a in p_cpu.items() if n != "layers"}
+    p_gpu["layers"] = {n: a.to(DEVICE) for n, a in p_cpu["layers"].items()}
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, spec.vocab_size, (2, 256)).astype(np.int32)
+    tl = np.array([230, 171], np.int32)
+    before = read_launches()
+    gen_gpu, _ = generate(spec, comp, ecfg, p_gpu, toks, tl, 48, -1,
+                          device=DEVICE)
+    after = read_launches()
+    gen_cpu, _ = generate(spec, comp, ecfg, p_cpu, toks, tl, 48, -1,
+                          device="cpu")
+    if DEVICE == "cuda" and any(after[n] - before[n] != spec.num_layers
+                                for n in after):
+        fail(f"small model: launches {before} -> {after}")
+    same = float((gen_gpu.cpu() == gen_cpu).float().mean())
+    print(f"small model (2 layers, D=64, float32, B=2): card kernels vs CPU "
+          f"plain versions, token agreement {same:.4f}", flush=True)
+    if same != 1.0:
+        fail("small model: card and CPU tokens differ")
+
+
+# Greedy tokens per request: the first jump wave fires at decode step 293.
+N_NEW = 384
+
+
+def main_config():
+    """Llama-3.2-1B at full width and depth; the paper's H2O + jump knobs;
+    a 3000-token prompt in the 4096 bucket, so H2O evicts (a prompt in the
+    2048 bucket would take the S_pad <= P passthrough)."""
+    from scope_tpu_torch import CompressionConfig, EngineConfig
+    from scope_tpu_torch.models.registry import get_spec
+    comp = CompressionConfig(method="h2o", decoding_metric="jump",
+                             max_capacity_prompt=2048, window_size=W,
+                             decoding_window_size=512,
+                             decoding_recent_size=256, delta=30)
+    ecfg = EngineConfig(max_prompt_len=4096, max_new_tokens=7950)
+    return get_spec("llama-3.2-1b"), comp, ecfg, 3000
+
+
+def main_path(spec, comp, ecfg, n_prompt, seed):
+    from scope_tpu_torch.engine.generate import StreamingGenerator
+    from scope_tpu_torch.models import llama
+    per_qhead = comp.evict_per_qhead
+    cap = ecfg.cache_capacity(comp)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = llama.init_params(spec, g, torch.bfloat16, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    S = ecfg.bucket_for(n_prompt)
+    toks = np.zeros((1, S), np.int32)
+    toks[0, :n_prompt] = rng.integers(1, spec.vocab_size, n_prompt)
+    tl = np.array([n_prompt], np.int32)
+
+    # The user's entry point, timed per token.
+    sg = StreamingGenerator(spec, comp, ecfg, params, eos_ids=(),
+                            device=DEVICE)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = sg.generate(toks, tl, N_NEW)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    tokens = res.tokens[0]
+    if res.gen_lengths[0] != N_NEW or not (
+            (tokens >= 0) & (tokens < spec.vocab_size)).all():
+        fail(f"main path: bad tokens {tokens[:8]}...")
+    for name, n in launches.items():
+        if DEVICE == "cuda" and n != spec.num_layers:
+            fail(f"main path: {name} launched {n} times in one prefill, "
+                 f"expected {spec.num_layers}")
+    decode_s = sum(res.tpot_s[1:])
+
+    # The same run through prefill / decode_step, reading every layer's
+    # cache length after each step.
+    tt = torch.as_tensor(toks, device=DEVICE)
+    ttl = torch.as_tensor(tl, device=DEVICE)
+    t = time.perf_counter()
+    logits, cache, state = llama.prefill(spec, comp, ecfg, params, tt, ttl)
+    tok = logits.argmax(-1).to(torch.int32)
+    got = [int(tok[0])]                        # waits for the device
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    lengths = [cache.length[:, 0].tolist()]
+    for s in range(N_NEW - 1):
+        logits, cache, state = llama.decode_step(spec, comp, ecfg, params,
+                                                 tok, ttl + s, cache, state)
+        if not torch.isfinite(logits).all():
+            fail(f"main path: non-finite logits at decode step {s}")
+        tok = logits.argmax(-1).to(torch.int32)
+        got.append(int(tok[0]))
+        lengths.append(cache.length[:, 0].tolist())
+    waves = [s for s in range(1, len(lengths))
+             if any(b < a for a, b in zip(lengths[s - 1], lengths[s]))]
+    if not waves:
+        fail("main path: no jump wave fired")
+    if max(max(x) for x in lengths) > cap:
+        fail(f"main path: a cache length exceeded capacity {cap}")
+    first = waves[0] - 1                       # decode step index
+    all_layers = all(b < a for a, b in zip(lengths[waves[0] - 1],
+                                            lengths[waves[0]]))
+    same = float(np.mean(np.array(got) == tokens))
+    tpot = np.array(res.tpot_s[1:]) * 1e3
+    print(f"main path {spec.name} evict_per_qhead={per_qhead}: "
+          f"TTFT {res.ttft_s * 1e3:.1f} ms, decode "
+          f"{(N_NEW - 1) / decode_s:.1f} tok/s over {N_NEW - 1} steps "
+          f"(TPOT median {np.median(tpot):.2f} ms, p95 "
+          f"{np.percentile(tpot, 95):.2f} ms), "
+          f"peak memory {peak / 2**30:.2f} GiB, launches per prefill "
+          f"{launches}, prefill length {lengths[0][0]} of capacity {cap}, "
+          f"first jump wave at decode step {first} "
+          f"(all {spec.num_layers} layers: {all_layers}), waves at steps "
+          f"{[w - 1 for w in waves][:6]}, lengths {min(map(min, lengths))}"
+          f"..{max(map(max, lengths))}, StreamingGenerator vs "
+          f"prefill/decode_step token agreement {same:.4f}; warm prefill "
+          f"{prefill_ms:.1f} ms", flush=True)
+    return launches
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on an NVIDIA card")
+    sys.path.insert(0, HERE)
+    import scope_tpu_torch
+    if not os.path.abspath(scope_tpu_torch.__file__).startswith(HERE):
+        fail(f"scope_tpu_torch imported from {scope_tpu_torch.__file__}, "
+             f"not from this checkout")
+    from scope_tpu_torch.ops import build
+    t0 = time.time()
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t = time.time()
+    logs = build.build()
+    print(f"build: {len(logs)} sources compiled in {time.time() - t:.1f} s "
+          f"into {build.BUILD_DIR}", flush=True)
+    for source, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {source}: {line.split(':', 1)[-1].strip()}")
+
+    timing = check_kernels(args.seed)
+    small_model_check(args.seed)
+    spec, comp, ecfg, n_prompt = main_config()
+    launches = {}
+    for per_qhead in (True, False):
+        launches = main_path(spec, comp.replace(evict_per_qhead=per_qhead),
+                             ecfg, n_prompt, args.seed)
+    if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "scope_tpu")
+           for m in sys.modules):
+        fail("the port loaded JAX or the JAX package")
+
+    sources = {"flash_prefill": ("scope_tpu_torch/csrc/flash_prefill.cu",
+                                 "scope_tpu/ops/pallas/flash_prefill.py:179"),
+               "colsum_scores": ("scope_tpu_torch/csrc/colsum_scores.cu",
+                                 "scope_tpu/ops/pallas/flash_prefill.py:299")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        bound_ms, bound_by = timing["bounds"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": timing["err"]["out" if name == "flash_prefill"
+                                         else "colsum"],
+            "ms": timing[name], "kernel_ms": timing[name],
+            "plain_ms": timing[name + "_plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": timing["sdpa"] if name == "flash_prefill" else None,
+            "library": ("F.scaled_dot_product_attention(is_causal=True), the "
+                        "attention half only" if name == "flash_prefill"
+                        else None),
+        })
+    print(f"total {time.time() - t0:.1f} s; card {card}", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

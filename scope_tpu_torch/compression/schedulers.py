@@ -1,0 +1,195 @@
+"""SCOPE decode-phase budget schedulers over the static slotted cache.
+
+Ported so far: the fixed ("slide"), linear ("adaptive") and jump
+("discontinuous") schedulers, which share :func:`schedule_decision`.  The
+reference's cross-layer class-attribute counters become an explicit
+:class:`SchedState` threaded through the layer loop; each layer call does
+the same counter arithmetic as one reference call, so the
+div-by-(delta * num_layers) schedule is the JAX package's exactly.
+
+The JAX package gates the rewrite with ``lax.cond`` on the device.  Here
+:func:`block_rewrite` asks ``row_gate.any()`` on the host: one device-to-
+host sync per layer per decode step (16 per step at Llama-3.2-1B), which
+the host-scheduled decode slice removes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from scope_tpu_torch.compression.policies import topk_indices
+from scope_tpu_torch.config import CompressionConfig
+from scope_tpu_torch.ops.attention import NEG_INF
+
+_NOT_PORTED = ("h2o", "slm", "pyramidinfer")
+
+
+@dataclass
+class SchedState:
+    """Cross-layer scheduler counters (reference class attributes), as
+    int32 scalar tensors: one stream, gates coupled across batch rows."""
+
+    step: torch.Tensor        # current_decoding_step (per layer call)
+    jump_step: torch.Tensor
+    jump_layer: torch.Tensor
+
+    @staticmethod
+    def init(device=None) -> "SchedState":
+        def z():
+            return torch.zeros((), dtype=torch.int32, device=device)
+        return SchedState(step=z(), jump_step=z(), jump_layer=z())
+
+    def replace(self, **kw) -> "SchedState":
+        return dataclasses.replace(self, **kw)
+
+
+class DecodeCaps(NamedTuple):
+    """Static capacity knobs derived by the engine."""
+
+    keep_cap: int            # static top-k size >= any W(t) - r
+    capacity: int            # cache slot capacity S_max
+
+
+def static_keep_cap(comp: CompressionConfig, max_new_tokens: int) -> int:
+    """Static top-k size bounding the data-dependent keep count."""
+    W = comp.decoding_window_size
+    r = comp.decoding_recent_size
+    P = comp.max_capacity_prompt
+    m = comp.decoding_metric
+    if m in ("fixed",):
+        return W - r
+    if m in ("linear", "jump"):
+        return max(W - r, max_new_tokens // max(comp.delta, 1) + 1)
+    if m == "pyramidinfer":
+        min_num = (P + W - r) // 2
+        max_num = (P + W - r) * 2 - min_num
+        return max(P + W - r, max_num + W)
+    # h2o / slm global metrics
+    return P + W - r
+
+
+def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
+                      state: SchedState, length: torch.Tensor,
+                      prompt_len: torch.Tensor, layer_idx: int,
+                      num_layers: int):
+    """Pure counter/gate logic for one layer call.
+
+    length [B] includes the appended token.  Returns (row_gate [B] bool,
+    n_keep [B] int32, pseg [B] int32, positional, state); positional is
+    False for every ported metric (True only for slm)."""
+    metric = comp.decoding_metric
+    if metric in _NOT_PORTED:
+        raise NotImplementedError(
+            f"decoding metric {metric!r} is not ported yet (ROADMAP §1 "
+            f"item 7)")
+    W = comp.decoding_window_size
+    r = comp.decoding_recent_size
+    B = length.shape[0]
+    dev = length.device
+    i32 = torch.int32
+    if comp.method == "allkv":
+        pseg = prompt_len.to(i32)
+    else:
+        pseg = torch.full((B,), comp.max_capacity_prompt, dtype=i32,
+                          device=dev)
+    thresh = comp.delta * num_layers
+
+    if metric == "none":
+        return (torch.zeros((B,), dtype=torch.bool, device=dev),
+                torch.zeros((B,), dtype=i32, device=dev), pseg, False,
+                state)
+    if metric == "fixed":
+        row_gate = length >= pseg + W
+        n_keep = torch.full((B,), W - r, dtype=i32, device=dev)
+    elif metric in ("linear", "jump"):
+        w_t = r + torch.div(state.step, thresh, rounding_mode="floor")
+        state = state.replace(step=state.step + 1)
+        row_gate = length >= pseg + w_t
+        n_keep = (w_t - r).to(i32).expand(B)
+        if metric == "jump":
+            # Scalar counters: one stream; the gate couples all rows.
+            gate = row_gate.any()
+            counting = gate & (state.jump_step < thresh)
+            wave = gate & (state.jump_step >= thresh)
+            js = state.jump_step + counting.to(i32)
+            jl = state.jump_layer + wave.to(i32)
+            finished = jl >= num_layers
+            zero = torch.zeros_like(js)
+            state = state.replace(jump_step=torch.where(finished, zero, js),
+                                  jump_layer=torch.where(finished, zero, jl))
+            row_gate = row_gate & wave
+    else:
+        raise ValueError(f"unknown decoding metric {metric!r}")
+
+    keep_cap = min(caps.keep_cap, caps.capacity)
+    region_len = (length - r - pseg).clamp(min=0)
+    n_keep = torch.minimum(n_keep.clamp(min=0), region_len)
+    n_keep = n_keep.clamp(max=keep_cap)
+    n_keep = torch.minimum(n_keep, caps.capacity - r - pseg)
+    return row_gate, n_keep.to(i32), pseg, False, state
+
+
+def block_width(comp: CompressionConfig, caps: DecodeCaps) -> int:
+    """Static width of the rewritten region [pseg, pseg + blkW)."""
+    return min(caps.keep_cap + comp.decoding_recent_size, caps.capacity)
+
+
+def block_map(comp: CompressionConfig, caps: DecodeCaps,
+              probs: torch.Tensor, length: torch.Tensor, pseg: torch.Tensor,
+              n_keep: torch.Tensor, row_gate: torch.Tensor):
+    """Src map restricted to the rewritten block [pseg, pseg + blkW):
+    [top-n_keep of the decode region by score | last r | identity].
+
+    probs: [B, H, S] float32 scores (this step's attention probabilities).
+    Returns (src_blk [B, H, blkW] absolute slot indices int64, new_len [B]
+    int32).  Rows where row_gate is False map to themselves."""
+    B, H, S = probs.shape
+    r = comp.decoding_recent_size
+    keep_cap = min(caps.keep_cap, caps.capacity)
+    blkW = block_width(comp, caps)
+    dev = probs.device
+    d = torch.arange(blkW, device=dev)
+    pseg_b = pseg[:, None, None].long()
+    len_b = length[:, None, None].long()
+    s_idx = torch.arange(S, device=dev)
+    score_region = (s_idx >= pseg_b) & (s_idx < len_b - r)       # [B, 1, S]
+    sc = torch.where(score_region, probs, NEG_INF)
+    topk = topk_indices(sc, keep_cap)                            # [B, H, K]
+
+    nk = n_keep[:, None, None].long()
+    in_keep = d < nk
+    in_rec = (d >= nk) & (d < nk + r)
+    src_keep = topk[..., d.clamp(max=keep_cap - 1)]              # [B,H,blkW]
+    src_rec = (len_b - r) + (d - nk)
+    src_id = pseg_b + d
+    src = torch.where(in_keep, src_keep, torch.where(in_rec, src_rec, src_id))
+    src = torch.where(row_gate[:, None, None], src, src_id)
+    new_len = torch.where(row_gate, pseg + n_keep + r, length)
+    return src, new_len.to(torch.int32)
+
+
+def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
+                  probs: torch.Tensor, ck_l: torch.Tensor,
+                  cv_l: torch.Tensor, length: torch.Tensor,
+                  pseg: torch.Tensor, n_keep: torch.Tensor,
+                  row_gate: torch.Tensor
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                             torch.Tensor]:
+    """The block rewrite of the JAX package's ``block_rewrite_cond``.
+
+    ck_l/cv_l: [B, H, cap, D].  Returns (kblk, vblk, new_len): kblk/vblk
+    [B, H, blkW, D] are the contents of [pseg, pseg + blkW) after this
+    step, new_len [B].  When no row fires, the region is unchanged and
+    (None, None, length) is returned: there is nothing to write.  Deciding
+    that costs one device-to-host sync (``row_gate.any()``)."""
+    if not bool(row_gate.any()):
+        return None, None, length
+    B, H, cap, D = ck_l.shape
+    src_blk, new_len = block_map(comp, caps, probs, length, pseg, n_keep,
+                                 row_gate)
+    idx = src_blk.clamp(0, cap - 1)[..., None].expand(B, H, -1, D)
+    return torch.gather(ck_l, 2, idx), torch.gather(cv_l, 2, idx), new_len

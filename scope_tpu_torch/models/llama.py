@@ -1,0 +1,368 @@
+"""Llama-family decoder in PyTorch with SCOPE compression integrated.
+
+The port of the JAX package's ``models/llama.py`` main path: ``prefill``
+(every layer: fused qkv + RoPE, GQA expansion, prefill attention with H2O
+score capture through the Hopper kernels, output projection + MLP, then
+prefill compression) and ``decode_step`` in ``compress_mode="cond"`` (per
+layer: append the token, attend with probabilities, schedule, rewrite the
+block when a row fires).
+
+Semantics kept from the reference forward:
+- RoPE is applied before caching; evicted caches keep original phases.
+- With ``evict_per_qhead`` the cache is GQA-expanded before the update, so
+  eviction is per query head; otherwise per kv head with group-summed
+  scores.
+- Prefill attention runs over the full uncompressed keys; only the stored
+  cache is compressed.
+- Decode attention runs over the appended, not-yet-compressed cache; the
+  compressed result is what the next step sees.
+- Softmax runs in float32.
+
+Layouts match the JAX package at the public functions: parameters are a
+dict with layer weights stacked on a leading [L] axis and the fused
+``wqkv`` columns grouped by kv head (each kv head's G query heads, then
+its k, then its v); the cache is [L, B, H, S_max, D].  Layers and decode
+steps are Python loops where JAX had ``lax.scan``; decode updates the
+cache in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from scope_tpu_torch.cache import KVCache, init_cache, slot_mask
+from scope_tpu_torch.compression.policies import compress_prefill
+from scope_tpu_torch.compression.schedulers import (DecodeCaps, SchedState,
+                                                    block_rewrite,
+                                                    schedule_decision,
+                                                    static_keep_cap)
+from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
+from scope_tpu_torch.device import resolve_device
+from scope_tpu_torch.ops.attention import (NEG_INF, decode_attention,
+                                           prefill_attention)
+from scope_tpu_torch.ops.common import (apply_rope, mlp, repeat_kv, rms_norm,
+                                        rope_cos_sin, rope_inv_freq, wdot)
+
+Params = Dict[str, Any]
+_PORTED_METHODS = ("fullkv", "allkv", "h2o")
+
+
+def _dtype(name: str) -> torch.dtype:
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    if name not in dtypes:
+        raise NotImplementedError(f"dtype {name!r} is not ported yet")
+    return dtypes[name]
+
+
+def _check_supported(spec: ModelSpec, comp: CompressionConfig) -> None:
+    if spec.sliding_window is not None or spec.attention_bias:
+        raise NotImplementedError(
+            f"{spec.arch} features (sliding window, qkv bias) are not "
+            f"ported yet (ROADMAP §1 item 13)")
+    if comp.method not in _PORTED_METHODS:
+        raise NotImplementedError(
+            f"prefill method {comp.method!r} is not ported yet (ROADMAP §1 "
+            f"item 13)")
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+def init_params(spec: ModelSpec, generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.bfloat16, device="cuda"
+                ) -> Params:
+    """Random init with HF-like scales (for tests and benchmarks).
+
+    ``generator`` must live on ``device``; None seeds a fresh one with 0.
+    Same layout as the JAX package's ``init_params``, not the same numbers
+    (tests carry one numpy weight set into both with ``params_from_jax``).
+    """
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    L, E = spec.num_layers, spec.hidden_size
+    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    I = spec.intermediate_size
+    G = spec.num_kv_groups
+
+    def dense(shape, fan_in):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    params = {
+        "embed": dense((spec.vocab_size, E), E),
+        "final_norm": ones((E,)),
+        "layers": {
+            "ln_attn": ones((L, E)),
+            "ln_mlp": ones((L, E)),
+            "wqkv": dense((L, E, Hkv * (G + 2) * D), E),
+            "wo": dense((L, Hq * D, E), Hq * D),
+            "w_gate": dense((L, E, I), E),
+            "w_up": dense((L, E, I), E),
+            "w_down": dense((L, I, E), I),
+        },
+    }
+    if not spec.tie_word_embeddings:
+        params["lm_head"] = dense((E, spec.vocab_size), E)
+    return params
+
+
+def _lm_logits(spec: ModelSpec, params: Params, h: torch.Tensor
+               ) -> torch.Tensor:
+    if spec.tie_word_embeddings:
+        return h @ params["embed"].transpose(0, 1)
+    return h @ params["lm_head"]
+
+
+# --------------------------------------------------------------------------
+# shapes / derived statics
+# --------------------------------------------------------------------------
+
+class ModelStatics(NamedTuple):
+    cache_heads: int          # H stored in the cache
+    capacity: int
+    caps: DecodeCaps
+
+
+def derive_statics(spec: ModelSpec, comp: CompressionConfig,
+                   ecfg: EngineConfig) -> ModelStatics:
+    cache_heads = spec.num_heads if comp.evict_per_qhead else spec.num_kv_heads
+    capacity = ecfg.cache_capacity(comp)
+    caps = DecodeCaps(keep_cap=static_keep_cap(comp, ecfg.max_new_tokens),
+                      capacity=capacity)
+    return ModelStatics(cache_heads, capacity, caps)
+
+
+def _group_scores(scores: Optional[torch.Tensor], groups: int
+                  ) -> Optional[torch.Tensor]:
+    """Aggregate per-query-head scores to per-KV-head (sum over group)."""
+    if scores is None:
+        return None
+    B, Hq, S = scores.shape
+    return scores.reshape(B, Hq // groups, groups, S).sum(dim=2)
+
+
+def _split_qkv(spec: ModelSpec, qkv: torch.Tensor):
+    """[B, S, Hkv*(G+2)*D] -> q [B,Hq,S,D], k, v [B,Hkv,S,D]."""
+    B, S = qkv.shape[:2]
+    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    G = spec.num_kv_groups
+    qkv = qkv.reshape(B, S, Hkv, G + 2, D)
+    q = qkv[:, :, :, :G].reshape(B, S, Hq, D).transpose(1, 2)
+    k = qkv[:, :, :, G].transpose(1, 2)
+    v = qkv[:, :, :, G + 1].transpose(1, 2)
+    return q, k, v
+
+
+def layer_qkv(spec: ModelSpec, p, x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor):
+    """Input norm + fused qkv projection + RoPE for one layer.
+
+    x: [B, S, E].  Returns (q [B,Hq,S,D], k [B,Hkv,S,D], v [B,Hkv,S,D]),
+    roped, NOT GQA-expanded."""
+    h = rms_norm(x, p["ln_attn"], spec.rms_norm_eps)
+    q, k, v = _split_qkv(spec, wdot(h, p, "wqkv"))
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def layer_post(spec: ModelSpec, p, x: torch.Tensor, out: torch.Tensor
+               ) -> torch.Tensor:
+    """Output projection + residual + MLP block.  out: [B, Hq, S, D]."""
+    B, S = x.shape[:2]
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    x = x + wdot(out, p, "wo")
+    h2 = rms_norm(x, p["ln_mlp"], spec.rms_norm_eps)
+    return x + mlp(h2, p)
+
+
+def _layer(params: Params, l: int) -> Dict[str, torch.Tensor]:
+    return {name: arr[l] for name, arr in params["layers"].items()}
+
+
+# --------------------------------------------------------------------------
+# prefill
+# --------------------------------------------------------------------------
+
+@torch.inference_mode()
+def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
+            params: Params, tokens: torch.Tensor, true_len: torch.Tensor
+            ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+    """Process the (right-padded) prompt.  tokens: [B, S] int on the
+    parameters' device; true_len: [B].  Returns (last-token logits [B, V],
+    compressed cache, fresh scheduler state)."""
+    _check_supported(spec, comp)
+    st = derive_statics(spec, comp, ecfg)
+    B, S = tokens.shape
+    L = spec.num_layers
+    D = spec.head_dim
+    G = spec.num_kv_groups
+    dtype = _dtype(ecfg.dtype)
+    dev = params["embed"].device
+    tl = true_len.to(device=dev, dtype=torch.int32)
+    need_all = comp.method == "h2o"
+
+    inv_freq = rope_inv_freq(D, spec.rope_theta, spec.rope_scaling, dev)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    cos, sin = rope_cos_sin(positions, inv_freq)
+
+    x = params["embed"][tokens.to(dev).long()].to(dtype)
+    cache = init_cache(L, B, st.cache_heads, st.capacity, D, dtype, dev)
+    cache.prompt_len = tl.clone()
+    for l in range(L):
+        p = _layer(params, l)
+        q, k, v = layer_qkv(spec, p, x, cos, sin)
+        k_full = repeat_kv(k, G)
+        v_full = repeat_kv(v, G)
+        out, scores = prefill_attention(
+            q, k_full, v_full, tl, window_size=comp.window_size,
+            need_colsum_all=need_all, sliding_window=spec.sliding_window)
+        x = layer_post(spec, p, x, out)
+        if comp.evict_per_qhead:
+            ck, cv, sc = k_full, v_full, scores
+        else:
+            ck, cv = k, v
+            sc = scores._replace(
+                colsum_all=_group_scores(scores.colsum_all, G))
+        res = compress_prefill(comp, l, L, ck, cv, q, sc, tl, st.capacity)
+        cache.k[l] = res.cache_k
+        cache.v[l] = res.cache_v
+        cache.length[l] = res.length
+        cache.pvalid[l] = res.pvalid
+
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
+    # Logits at the last real token of each row.
+    last = (tl.long() - 1).clamp(0, S - 1)
+    h_last = x[torch.arange(B, device=dev), last]
+    logits = _lm_logits(spec, params, h_last)
+    return logits, cache, SchedState.init(dev)
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+def _grouped_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                              cache_v: torch.Tensor, mask: torch.Tensor,
+                              groups: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GQA decode attention without expanding the cache (kv-head layout).
+
+    q: [B, Hq, 1, D]; cache: [B, Hkv, S, D]; mask: [B, Hkv, S].  Returns
+    (out [B, Hq, 1, D], probs [B, Hkv, S] summed over each kv head's query
+    group, the per-kv-head eviction scores)."""
+    B, Hq, _, D = q.shape
+    Hkv = cache_k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, groups, D)
+    logits = torch.matmul(qg.float(), cache_k.float().transpose(-1, -2))
+    logits = logits * scale
+    logits = torch.where(mask[:, :, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(cache_v.dtype), cache_v)
+    return out.reshape(B, Hq, 1, D), probs.sum(dim=2)
+
+
+def _write_block(buf: torch.Tensor, l: int, start: int, blk: torch.Tensor,
+                 rows=slice(None)) -> None:
+    """buf[l, rows, :, start:start+W] = blk, with the start clamped so the
+    block fits, as ``lax.dynamic_update_slice`` clamps it."""
+    W = blk.shape[2]
+    start = min(max(start, 0), buf.shape[3] - W)
+    buf[l, rows, :, start:start + W] = blk
+
+
+@torch.inference_mode()
+def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
+                params: Params, token: torch.Tensor, vpos: torch.Tensor,
+                cache: KVCache, state: SchedState
+                ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+    """One decode step.  token: [B] (the token being fed); vpos: [B] its
+    virtual position (true_len + step).  Returns (next-token logits [B, V],
+    cache, state); the cache's k/v/length are updated in place.
+
+    This is the JAX package's ``compress_mode="cond"``: the scheduler's
+    gates are evaluated per layer and the rewrite runs when a row fires
+    (one host sync per layer, see ``schedulers.block_rewrite``).  The
+    host-scheduled "off"/"force" modes are the next slice (ROADMAP §1
+    item 9)."""
+    _check_supported(spec, comp)
+    st = derive_statics(spec, comp, ecfg)
+    B = token.shape[0]
+    L = spec.num_layers
+    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    Hc = st.cache_heads
+    G = spec.num_kv_groups
+    cap = cache.capacity                # the physical slot count
+    dtype = _dtype(ecfg.dtype)
+    dev = params["embed"].device
+    vpos = vpos.to(dev)
+
+    inv_freq = rope_inv_freq(D, spec.rope_theta, spec.rope_scaling, dev)
+    cos, sin = rope_cos_sin(vpos[:, None], inv_freq)          # [B, 1, D]
+    x = params["embed"][token.to(dev).long()[:, None]].to(dtype)
+    b_idx = torch.arange(B, device=dev)[:, None]
+    h_idx = torch.arange(Hc, device=dev)[None, :]
+    # Every method but allkv protects the static P: one write offset.
+    uniform_pseg = B == 1 or comp.method != "allkv"
+
+    for l in range(L):
+        p = _layer(params, l)
+        h = rms_norm(x, p["ln_attn"], spec.rms_norm_eps)
+        q, k, v = _split_qkv(spec, wdot(h, p, "wqkv"))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if comp.evict_per_qhead:
+            k = repeat_kv(k, G)
+            v = repeat_kv(v, G)
+
+        # In-place append at (l, b, :, length[b], :).
+        length = cache.length[l]
+        pos = length.long()[:, None]
+        cache.k[l, b_idx, h_idx, pos] = k[:, :, 0, :]
+        cache.v[l, b_idx, h_idx, pos] = v[:, :, 0, :]
+        length = length + 1
+        cache.length[l] = length
+
+        ck_l, cv_l = cache.k[l], cache.v[l]
+        mask = slot_mask(length, cache.pvalid[l], cache.prefill_gap, cap)
+        if comp.evict_per_qhead:
+            out, probs = decode_attention(q, ck_l, cv_l, mask)
+        else:
+            out, probs = _grouped_decode_attention(q, ck_l, cv_l, mask, G)
+
+        if comp.decoding_metric != "none":
+            row_gate, n_keep, pseg, _, state = schedule_decision(
+                comp, st.caps, state, length, cache.prompt_len, l, L)
+            kblk, vblk, new_len = block_rewrite(
+                comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
+                row_gate)
+            if kblk is not None:
+                if uniform_pseg:
+                    start = (comp.max_capacity_prompt
+                             if comp.method != "allkv" else int(pseg[0]))
+                    _write_block(cache.k, l, start, kblk)
+                    _write_block(cache.v, l, start, vblk)
+                else:            # per-row offsets (allkv batches)
+                    for b, start in enumerate(pseg.tolist()):
+                        _write_block(cache.k, l, start, kblk[b:b + 1],
+                                     slice(b, b + 1))
+                        _write_block(cache.v, l, start, vblk[b:b + 1],
+                                     slice(b, b + 1))
+                cache.length[l] = new_len
+
+        out = out.transpose(1, 2).reshape(B, 1, Hq * D)
+        x = x + wdot(out, p, "wo")
+        h2 = rms_norm(x, p["ln_mlp"], spec.rms_norm_eps)
+        x = x + mlp(h2, p)
+
+    x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
+    logits = _lm_logits(spec, params, x[:, 0])
+    return logits, cache, state
