@@ -12,8 +12,12 @@ Three phases, each fatal on failure:
    card, at the head shapes of Llama-3.2-1B and Llama-3.1-8B, a ragged S,
    a sliding window and logits scaled by 8 (bf16 inputs, the plain version
    in float32 on the same values; then the kernels on those float32
-   values, held tightly), and time kernel, plain version and, for the
-   attention half only, F.scaled_dot_product_attention.
+   values, held tightly; pad rows of the bf16 route must read out = 0,
+   m2 = 0, l2 = 1), and time kernel, plain version and, for the
+   attention half only, F.scaled_dot_product_attention over all rows and
+   over the real rows, beside each kernel's bound (bytes, bf16 tensor-core
+   operations or exps, whichever takes longest).  Each kernel's design
+   (tensor-core products, asynchronous copies) is read from its SASS.
 3. main path: a small model on the card (kernels) against the CPU (plain
    versions), then Llama-3.2-1B at full width and depth with random bf16
    weights: H2O prefill (P=2048, w=8) of a 3000-token prompt in the 4096
@@ -30,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +48,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exps per SM per clock on the special-function units (MUFU.EX2) of sm_90.
+EXPS_PER_SM_CLOCK = 16
+# Query rows of one flash_prefill tile (csrc/mma.cuh ROWS): the attention
+# side needs exps of its own only on the tile that crosses the diagonal.
+TILE = 64
+# SASS instructions that name a kernel's design, in the order printed.
+DESIGN_OPS = (("HGMMA", "wgmma"), ("HMMA", "mma.sync"), ("UTMALDG", "TMA"),
+              ("LDGSTS", "cp.async"), ("SYNCS", "mbarrier"))
 W = 8                       # H2O prefill window of the main path
 DEVICE = "cuda"
 
@@ -63,6 +76,17 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def exp_rate() -> float:
+    """exps per second the card's special-function units can do: 16 per
+    SM per clock at the maximum SM clock nvidia-smi reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXPS_PER_SM_CLOCK * sms * float(mhz) * 1e6
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -98,15 +122,18 @@ KERNEL_CASES = {
 # to 2^-9 of each term) and writes bf16.  Where a few keys carry a row's
 # weight (early rows, logits x8) and their values cancel, that rounding
 # alone moves out by up to ~2.6e-3 against |out| ~ 2e-3, so atol cannot be
-# much below 5e-3; the float32 check below is the tight one.  m2 / l2 /
-# colsum: float32 sums in another order.
+# much below 5e-3.  m2 / l2 / colsum: float32 sums in another order.
 TOL = {"out": (2e-2, 5e-3), "m2": (1e-4, 1e-4), "l2": (1e-3, 1e-3),
        "colsum": (1e-3, 1e-3)}
-# The kernels again on the float32 values, where nothing is rounded and
-# the sums differ only in order: rtol = atol for every output, looser at
-# logits x8 (as tests/test_torch_cuda_kernels.py).  Late rows have |out|
-# ~ 0.03, and a dropped or mis-masked 64-key tile moves them by ~3e-3, far
-# past these tolerances.
+# The tight check of the bf16 route: per real row, |out - ref| / |ref| over
+# the row's D values.  Rounding p and out to bf16 gives a few 2^-9 at
+# most, whatever the number of keys; a 64-key tile dropped or mis-masked
+# moves a late row's out by ~8/sqrt(keys) of its norm, >= 0.1 at 4096 keys.
+OUT_REL = 1e-2
+# The float32 route (the FP32 FMA kernels, which float32 inputs reach) on
+# the float32 values, where nothing is rounded and the sums differ only in
+# order: rtol = atol for every output and OUT_REL, looser at logits x8 (as
+# tests/test_torch_cuda_kernels.py).
 TOL_F32 = {1.0: 2e-4, 8.0: 1e-3}
 TOPK_MIN = 0.995
 OUTPUTS = ("out", "m2", "l2", "colsum")
@@ -147,12 +174,21 @@ def run_kernels(fp, q, k, v, ttl, window):
     return out, m2, l2, fp.colsum_scores(q, k, ttl, m2, l2, window_size=W)
 
 
-def compare(what, got, ref, tl, tol):
+def compare(what, got, ref, tl, tol, out_rel):
     """Fail unless |got - ref| <= atol + rtol * |ref| for every output
-    (out / m2 / l2 over the real rows, colsum over all keys).  Returns
-    each output's max abs error and the least atol it needed at its
-    rtol."""
+    (out / m2 / l2 over the real rows, colsum over all keys) and out's
+    norm-wise relative error is at most out_rel in every real row.  Returns
+    each output's max abs error, the least atol it needed at its rtol, and
+    the largest relative errors of out (norm-wise per row) and l2."""
     err, need = {}, {}
+    rel = {"out": 0.0, "l2": 0.0}
+    for b, n in enumerate(tl):
+        g_, r_ = got[0][b, :, :n].float(), ref[0][b, :, :n]
+        row = (g_ - r_).norm(dim=-1) / r_.norm(dim=-1).clamp_min(1e-30)
+        rel["out"] = max(rel["out"], float(row.max()))
+        rel["l2"] = max(rel["l2"], float(
+            ((got[2][b, :, :n] - ref[2][b, :, :n]).abs()
+             / ref[2][b, :, :n].abs()).max()))
     for name, g, r in zip(OUTPUTS, got, ref):
         rtol, atol = tol[name]
         parts = ([(g, r)] if name == "colsum" else
@@ -167,8 +203,13 @@ def compare(what, got, ref, tl, tol):
             need[name] = max(need[name], float((d - rtol * r_.abs()).max()))
         if need[name] > atol:
             fail(f"{what}: {name} off by up to {err[name]:.3g}; needs atol "
-                 f"{need[name]:.3g} at rtol {rtol} (tolerance {atol})")
-    return err, need
+                 f"{need[name]:.3g} at rtol {rtol} (tolerance {atol}); out's "
+                 f"norm-wise relative error {rel['out']:.3g}")
+    if rel["out"] > out_rel:
+        fail(f"{what}: out's norm-wise relative error {rel['out']:.3g} in a "
+             f"row (tolerance {out_rel}); least atol needed {need['out']:.3g}"
+             f" at rtol {tol['out'][0]} (tolerance {tol['out'][1]})")
+    return err, need, rel
 
 
 def fmt(d):
@@ -190,19 +231,29 @@ def check_kernels(seed):
         ref = (ro, rm2, rl2, fp.colsum_scores_reference(
             qf, kf, ttl, rm2, rl2, window_size=W))
         sync()
-        err, need = compare(f"{case} bf16", got, ref, tl, TOL)
+        err, need, rel = compare(f"{case} bf16", got, ref, tl, TOL, OUT_REL)
+        # The kernel's pad rows (a CPU rehearsal runs the plain version,
+        # which computes attention there).
+        for b, n in enumerate(tl if DEVICE == "cuda" else ()):
+            if not ((got[0][b, :, n:] == 0).all()
+                    and (got[1][b, :, n:] == 0).all()
+                    and (got[2][b, :, n:] == 1).all()):
+                fail(f"{case} bf16: pad rows of row {b} are not out = 0, "
+                     f"m2 = 0, l2 = 1")
         t32 = TOL_F32[scale]
-        err32, _ = compare(f"{case} float32", got32, ref, tl,
-                           {n: (t32, t32) for n in OUTPUTS})
+        err32, _, rel32 = compare(f"{case} float32", got32, ref, tl,
+                                  {n: (t32, t32) for n in OUTPUTS}, t32)
         cs, rcs = got[3], ref[3]
         agree = topk_agreement(cs, rcs, tl)
         if agree < TOPK_MIN:
             fail(f"{case}: colsum top-k agreement {agree:.4f} < {TOPK_MIN}")
         print(f"kernels {case}: B={B} H={H} S={S} D={D} true_len={tl} "
               f"window={window} logits x{scale:g}; bf16 max_abs_err "
-              f"{fmt(err)}, least atol needed {fmt(need)}; float32 "
-              f"max_abs_err {fmt(err32)} (tolerance {t32}); "
-              f"topk_agree={agree:.4f}", flush=True)
+              f"{fmt(err)}, least atol needed {fmt(need)}, relative out "
+              f"{rel['out']:.3g} (norm-wise per row, tolerance {OUT_REL}) l2 "
+              f"{rel['l2']:.3g}; float32 max_abs_err {fmt(err32)}, relative "
+              f"out {rel32['out']:.3g} l2 {rel32['l2']:.3g} (tolerance "
+              f"{t32}); topk_agree={agree:.4f}", flush=True)
         if case == "main_path":
             m2, l2 = got[1], got[2]
             timing = time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2,
@@ -210,29 +261,40 @@ def check_kernels(seed):
     return timing
 
 
-def bounds(B, H, S, D, n_real, elem_bytes):
+def bounds(B, H, S, D, n_real, elem_bytes, exps_per_s):
     """Least time for each function on these inputs (ms, bound_by): the
-    larger of bytes / HBM rate and matmul operations / bf16 peak.  exps
-    are not counted (the table has no rate for them).  Only the n_real
-    rows before true_len count: nothing reads the outputs of pad rows
-    (colsum masks them, later layers mask pad keys, the logits take the
-    last real token), so S is not used."""
+    largest of bytes / HBM rate, matmul operations / bf16 peak and exps /
+    the special-function units' rate (exps_per_s, from exp_rate()).  Only
+    the n_real rows before true_len count: nothing reads the outputs of
+    pad rows (colsum masks them, later layers mask pad keys, the logits
+    take the last real token), so S is not used."""
     # flash: QK^T for every real row against every real key (the scoring
-    # side covers them all), PV for the causal pairs; q/k/v read, out /
-    # m2 / l2 written for the real rows.
+    # side covers them all), PV for the causal pairs; q/k/v read, out / m2 /
+    # l2 written for the real rows.  One exp per (real row, real key) pair
+    # for the scoring side.  Below the diagonal the attention side sees the
+    # same keys in the same order, so its probabilities are the scoring
+    # side's times one factor per row: it needs exps of its own only for
+    # the causal pairs of each row's diagonal tile.
     att_pairs = n_real * (n_real + 1) // 2
+    full, part = divmod(n_real, TILE)
+    diag_pairs = full * TILE * (TILE + 1) // 2 + part * (part + 1) // 2
     flash_ops = B * H * (2 * D * n_real * n_real + 2 * D * att_pairs)
+    flash_exps = B * H * (n_real * n_real + diag_pairs)
     flash_bytes = B * H * n_real * (4 * D * elem_bytes + 2 * 4) + 4 * B
-    # colsum: QK^T over real rows x real keys; q/k/m2/l2 read, colsum
-    # written.
+    # colsum: QK^T and one exp over real rows x real keys; q/k/m2/l2 read,
+    # colsum written.
     cs_ops = B * H * 2 * D * n_real * n_real
+    cs_exps = B * H * n_real * n_real
     cs_bytes = B * H * n_real * (2 * D * elem_bytes + 3 * 4) + 4 * B
     out = {}
-    for name, ops, nbytes in (("flash_prefill", flash_ops, flash_bytes),
-                              ("colsum_scores", cs_ops, cs_bytes)):
-        t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
+    for name, ops, exps, nbytes in (
+            ("flash_prefill", flash_ops, flash_exps, flash_bytes),
+            ("colsum_scores", cs_ops, cs_exps, cs_bytes)):
+        terms = {"bytes": nbytes / PEAK_BYTES,
+                 "operations": ops / PEAK_BF16_FLOPS,
+                 "exps": exps / exps_per_s}
+        by = max(terms, key=terms.get)
+        out[name] = (terms[by] * 1e3, by)
     return out
 
 
@@ -251,15 +313,38 @@ def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
         "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 10),
     }
-    t["bounds"] = bounds(B, H, S, D, n_real, q.element_size())
+    qr, kr, vr = (x[:, :, :n_real].contiguous() for x in (q, k, v))
+    t["sdpa_real_rows"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=True), 10)
+    rate = exp_rate()
+    t["bounds"] = bounds(B, H, S, D, n_real, q.element_size(), rate)
     t["err"] = err
+    from scope_tpu_torch.ops import build
+    t["design"] = {name: design(build.sass(src)) for name, src in (
+        ("flash_prefill", "flash_prefill.cu"),
+        ("colsum_scores", "colsum_scores.cu"))}
     print(f"kernel times at the main path's shape (B={B} H={H} S={S} D={D} "
           f"true_len={n_real} bf16): flash_prefill {t['flash_prefill']:.3f} "
           f"ms (plain {t['flash_prefill_plain']:.3f}, SDPA causal "
-          f"{t['sdpa']:.3f} as a yardstick for the attention half only), "
-          f"colsum_scores {t['colsum_scores']:.3f} ms (plain "
-          f"{t['colsum_scores_plain']:.3f})", flush=True)
+          f"{t['sdpa']:.3f} over {S} rows and {t['sdpa_real_rows']:.3f} over "
+          f"the {n_real} real rows, yardsticks for the attention half "
+          f"only), colsum_scores {t['colsum_scores']:.3f} ms (plain "
+          f"{t['colsum_scores_plain']:.3f}); exp rate {rate:.4g}/s; bounds "
+          f"{t['bounds']}; bf16 designs from SASS {t['design']}", flush=True)
     return t
+
+
+def design(sass: str) -> str:
+    """The design of a library's bf16 route, from its SASS (cuobjdump
+    -sass): the DESIGN_OPS instructions that every bf16 kernel of it uses
+    (functions named *_tc), joined by '+', or 'FMA' for none."""
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if f.split(None, 1)[0].split("ILi")[0].endswith("_tc")]
+    if not funcs:
+        fail("no bf16 (_tc) kernel in the SASS")
+    names = [name for op, name in DESIGN_OPS
+             if all(re.search(rf"\b{op}\b", f) for f in funcs)]
+    return "+".join(names) or "FMA"
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +549,10 @@ def main():
                                          else "colsum"],
             "ms": timing[name], "kernel_ms": timing[name],
             "plain_ms": timing[name + "_plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "bound_by": bound_by, "design": timing["design"][name],
             "library_ms": timing["sdpa"] if name == "flash_prefill" else None,
+            "library_real_rows_ms": (timing["sdpa_real_rows"]
+                                     if name == "flash_prefill" else None),
             "library": ("F.scaled_dot_product_attention(is_causal=True), the "
                         "attention half only" if name == "flash_prefill"
                         else None),

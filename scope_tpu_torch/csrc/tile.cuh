@@ -1,9 +1,10 @@
-// Shared tile helpers for the prefill kernels (flash_prefill.cu,
-// colsum_scores.cu).  Both kernels work on 64 x 64 (query x key) tiles with
-// 256 threads laid out 16 x 16; a thread owns a 4 x 4 block of the tile:
-// rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.  Operands sit in shared
-// memory as float32, Q and K transposed ([D][TPAD]) so that each thread
-// reads its four rows or columns as one 16-byte load.
+// Shared tile helpers of the float32 route of the prefill kernels
+// (flash_prefill.cu, colsum_scores.cu; the bf16 route is in mma.cuh).  Both
+// kernels work on 64 x 64 (query x key) tiles with 256 threads laid out
+// 16 x 16; a thread owns a 4 x 4 block of the tile: rows ty*4 .. ty*4+3 and
+// columns tx*4 .. tx*4+3.  Operands sit in shared memory as float32, Q and
+// K transposed ([D][TPAD]) so that each thread reads its four rows or
+// columns as one 16-byte load.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,39 +27,15 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 a, b;
-  memcpy(&a, &t.x, sizeof(a));
-  memcpy(&b, &t.y, sizeof(b));
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  x[0] = fa.x; x[1] = fa.y; x[2] = fb.x; x[3] = fb.y;
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 t;
-  memcpy(&t.x, &a, sizeof(a));
-  memcpy(&t.y, &b, sizeof(b));
-  *reinterpret_cast<uint2*>(p) = t;
-}
-
-// Round a float32 to the input type and back (JAX's p.astype(v.dtype)).
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Rows [row0, row0 + 64) of a row-major [S, D] matrix into Xt[D][TPAD]
 // (transposed, float32); rows at or past S read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(float* Xt, const T* X, int row0,
-                                            int S) {
+template <int D>
+__device__ __forceinline__ void load_tile_t(float* Xt, const float* X,
+                                            int row0, int S) {
   constexpr int CH = D / 4;
   for (int idx = threadIdx.x; idx < BQ * CH; idx += THREADS) {
     const int r = idx / CH, c = (idx % CH) * 4;
@@ -70,8 +47,8 @@ __device__ __forceinline__ void load_tile_t(float* Xt, const T* X, int row0,
 }
 
 // Rows [row0, row0 + 64) of a row-major [S, D] matrix into Xs[64][D].
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* Xs, const T* X, int row0,
+template <int D>
+__device__ __forceinline__ void load_tile(float* Xs, const float* X, int row0,
                                           int S) {
   constexpr int CH = D / 4;
   for (int idx = threadIdx.x; idx < BK * CH; idx += THREADS) {

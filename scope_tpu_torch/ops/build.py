@@ -94,6 +94,17 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(source: str) -> str:
+    """The SASS of one source's library (``cuobjdump -sass``, from nvcc's
+    toolkit), built first if needed."""
+    if not lib_path(source).exists():
+        build([source])
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib_path(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def check(source: str, err: int) -> None:
     """Raise if a launch from ``source``'s library returned a CUDA error."""
     if err != 0:

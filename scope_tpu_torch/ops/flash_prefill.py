@@ -13,18 +13,29 @@ Given (m2, l2) it recomputes QK^T and sums, per key, ``exp(s - m2) / l2``
 over the real query rows: the H2O cumulative-attention score that
 ``compress_prefill`` ranks.
 
-What bounds them on an H100: operations, not bytes.  Both read O(S*D) per
-(batch, head) and do O(S^2 * D) multiply-adds plus O(S^2) ``exp``s; the
-scoring side is non-causal, so it covers every key below true_len for every
-row.  At Llama-3.2-1B prefill shapes (H=32, S=4096, D=64) that is about
-0.1 G bytes against 35-100 GFLOP per kernel.  What the design does: a QK^T
-tile is computed once and feeds both softmaxes; tiles wholly above the
-diagonal, outside the sliding window or past true_len skip the attention
-side (and past true_len the scoring side); rows and keys past true_len are
-skipped in ``colsum_scores``.  Tiles are 64 x 64 in shared memory as float32
-with register-blocked FMA products (no tensor cores yet), so the kernels
-run at the float32 FMA rate, well under the bf16 tensor-core bound; see
-PERF.md for the measured times.
+What bounds them on an H100: the ``exp``s, not bytes.  Both read O(S*D)
+per (batch, head) and need 2*D operations and one ``exp`` per (row, key)
+pair of the scoring side, which is non-causal, so it covers every key
+below true_len for every row (below the diagonal the attention side's
+probabilities are the scoring side's times one factor per row; the
+flash kernel still evaluates them apart).  One ``exp`` on the
+special-function units costs the time of ~240 bf16 tensor-core
+operations, so at D=64
+(Llama-3.2-1B) the ``exp``s set the bound and at D=128 (Llama-3.1-8B) the
+tensor-core operations do.  What the design does: a QK^T tile is computed
+once and feeds both softmaxes; tiles wholly above the diagonal, outside the
+sliding window or past true_len skip the attention side (and past true_len
+the scoring side); q-tiles and key tiles wholly past true_len do no work;
+masks are built only on tiles that cross an edge; ``exp``s are single
+``ex2.approx`` instructions with the scale, log2(e) and (in
+``colsum_scores``) the normalizer folded into one multiply-add.  bf16 inputs
+run on the tensor cores (``wgmma``), fed by TMA into a shared-memory double
+buffer under mbarriers; float32 inputs keep float32 FMA products, so that
+route stays within 2e-4 of the plain version.  PERF.md has the times.
+
+On the bf16 route every row at or past true_len reads out = 0, m2 = 0,
+l2 = 1; the plain version computes attention there.  Nothing reads those
+rows (tests/test_torch_pad_rows.py).
 
 ``colsum_scores`` takes no atomics: one block owns a 64-key tile and walks
 the query tiles in ascending order, so sums are the same on every run and
