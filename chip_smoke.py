@@ -19,11 +19,19 @@ Three phases, each fatal on failure:
    operations or exps, whichever takes longest).  Each kernel's design
    (tensor-core products, asynchronous copies) is read from its SASS.
 3. main path: a small model on the card (kernels) against the CPU (plain
-   versions), then Llama-3.2-1B at full width and depth with random bf16
-   weights: H2O prefill (P=2048, w=8) of a 3000-token prompt in the 4096
-   bucket, then 384 greedy tokens of SCOPE jump decode (W=512, r=256,
-   delta=30), with per-query-head and per-kv-head eviction.  Every kernel
-   launch counter is set to 0 just before each run and read just after.
+   versions; cond mode and the host-scheduled path), then Llama-3.2-1B at
+   full width and depth with random bf16 weights: H2O prefill (P=2048,
+   w=8) of a 3000-token prompt in the 4096 bucket, then SCOPE jump decode
+   (W=512, r=256, delta=30), with per-query-head and per-kv-head eviction:
+   (a) 384 tokens through StreamingGenerator, which takes the
+   host-scheduled decoder; (b) the cond-mode prefill / decode_step loop as
+   the reference: per-layer lengths and waves identical to the host path's
+   at every step, and the host path's logits, fed (b)'s tokens, within
+   LOGIT_REL of (b)'s; (c) host_generate with chunked hot runs, its mirror
+   and cache lengths equal to the per-step path's; (d) 300 steps of hot
+   chunks and a force step under torch.cuda.set_sync_debug_mode("error").  Every kernel launch counter
+   is set to 0 just before each run and read just after; each run prints
+   decode tok/s and TPOT beside the card's name and power limit.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}.
@@ -363,11 +371,63 @@ def read_launches():
             "colsum_scores": fp.colsum_scores.launches}
 
 
+def counted(what, per_prefill, prefills, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; fails unless each kernel launched per_prefill times in each of
+    the run's prefills.  Returns (fn's result, the counts)."""
+    reset_launches()
+    out = fn()
+    launches = read_launches()
+    if DEVICE == "cuda" and any(n != per_prefill * prefills
+                                for n in launches.values()):
+        fail(f"{what}: launches {launches} over {prefills} prefill(s), "
+             f"expected {per_prefill} of each kernel per prefill")
+    return out, launches
+
+
+def rate(tpot_s):
+    """decode tok/s and TPOT median / p95 from per-token host times (the
+    first entry, the time to the first token, left out)."""
+    t = np.asarray(tpot_s[1:]) * 1e3
+    return (f"decode {len(t) / t.sum() * 1e3:.1f} tok/s over {len(t)} "
+            f"tokens (TPOT median {np.median(t):.2f} ms, p95 "
+            f"{np.percentile(t, 95):.2f} ms)")
+
+
+def spread(tpot_s):
+    """Per-token times of a chunked run: the tokens of one chunk share its
+    end time (zeros after its first token); give each an equal share."""
+    out = list(tpot_s)
+    i = 1
+    while i < len(out):
+        j = i + 1
+        while j < len(out) and out[j] == 0:
+            j += 1
+        out[i:j] = [out[i] / (j - i)] * (j - i)
+        i = j
+    return out
+
+
+def first_difference(a, b):
+    diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(diff[0]) if len(diff) else None
+
+
+def wave_steps(lengths):
+    """Decode steps whose compression shrank some layer's cache, from the
+    per-layer lengths after prefill and after each step."""
+    return [s - 1 for s in range(1, len(lengths))
+            if any(b < a for a, b in zip(lengths[s - 1], lengths[s]))]
+
+
 def small_model_check(seed):
     """Kernels (card) against plain versions (CPU) through the whole path:
-    a 2-layer model with Llama head shapes, float32, identical tokens."""
+    a 2-layer model with Llama head shapes, float32, identical tokens, in
+    cond mode (B=2, ragged) and on the host-scheduled path with chunked
+    hot runs (B=1)."""
     from scope_tpu_torch import CompressionConfig, EngineConfig, ModelSpec
     from scope_tpu_torch.engine.generate import generate
+    from scope_tpu_torch.engine.host_loop import host_generate
     from scope_tpu_torch.models import llama
     spec = ModelSpec(name="smoke-small", vocab_size=512, hidden_size=256,
                      intermediate_size=512, num_layers=2, num_heads=4,
@@ -385,24 +445,37 @@ def small_model_check(seed):
     rng = np.random.default_rng(seed)
     toks = rng.integers(1, spec.vocab_size, (2, 256)).astype(np.int32)
     tl = np.array([230, 171], np.int32)
-    before = read_launches()
-    gen_gpu, _ = generate(spec, comp, ecfg, p_gpu, toks, tl, 48, -1,
-                          device=DEVICE)
-    after = read_launches()
+    L = spec.num_layers
+    (gen_gpu, _), _ = counted("small model, cond mode", L, 1, lambda: generate(
+        spec, comp, ecfg, p_gpu, toks, tl, 48, -1, device=DEVICE))
     gen_cpu, _ = generate(spec, comp, ecfg, p_cpu, toks, tl, 48, -1,
                           device="cpu")
-    if DEVICE == "cuda" and any(after[n] - before[n] != spec.num_layers
-                                for n in after):
-        fail(f"small model: launches {before} -> {after}")
     same = float((gen_gpu.cpu() == gen_cpu).float().mean())
-    print(f"small model (2 layers, D=64, float32, B=2): card kernels vs CPU "
-          f"plain versions, token agreement {same:.4f}", flush=True)
-    if same != 1.0:
+    ecfg_c = ecfg.replace(decode_chunk_sizes=(8, 4))
+    (host_gpu, _), _ = counted("small model, host path", L, 1, lambda: (
+        host_generate(spec, comp, ecfg_c, p_gpu, toks[:1], tl[:1], 48,
+                      device=DEVICE)))
+    host_cpu, _ = host_generate(spec, comp, ecfg_c, p_cpu, toks[:1], tl[:1],
+                                48, device="cpu")
+    host_same = float(np.mean(host_gpu == host_cpu))
+    print(f"small model (2 layers, D=64, float32): card kernels vs CPU plain "
+          f"versions, token agreement {same:.4f} in cond mode (B=2), "
+          f"{host_same:.4f} on the host path with chunks (8, 4) (B=1)",
+          flush=True)
+    if same != 1.0 or host_same != 1.0:
         fail("small model: card and CPU tokens differ")
 
 
-# Greedy tokens per request: the first jump wave fires at decode step 293.
+# Greedy tokens per request: the first jump wave fires at decode step 293,
+# then 324 and 355 (they depend on cache lengths only, not on tokens).
 N_NEW = 384
+WAVES = [293, 324, 355]
+# Teacher-forced on the cond path's tokens, the host path's logits at
+# every step, norm-wise: |a - b| / |b| over the vocabulary.  Both paths
+# run the same operations on the same shapes (every hot step's length
+# bucket is the full capacity here), so the expected error is 0; a wrong
+# keep count or gate moves it to O(1).
+LOGIT_REL = 1e-2
 
 
 def main_config():
@@ -419,82 +492,200 @@ def main_config():
     return get_spec("llama-3.2-1b"), comp, ecfg, 3000
 
 
-def main_path(spec, comp, ecfg, n_prompt, seed):
-    from scope_tpu_torch.engine.generate import StreamingGenerator
+def main_inputs(spec, ecfg, n_prompt, seed):
+    """Random bf16 weights and one prompt of n_prompt real tokens."""
     from scope_tpu_torch.models import llama
-    per_qhead = comp.evict_per_qhead
-    cap = ecfg.cache_capacity(comp)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     params = llama.init_params(spec, g, torch.bfloat16, device=DEVICE)
     rng = np.random.default_rng(seed)
-    S = ecfg.bucket_for(n_prompt)
-    toks = np.zeros((1, S), np.int32)
+    toks = np.zeros((1, ecfg.bucket_for(n_prompt)), np.int32)
     toks[0, :n_prompt] = rng.integers(1, spec.vocab_size, n_prompt)
-    tl = np.array([n_prompt], np.int32)
+    return params, toks, np.array([n_prompt], np.int32)
 
-    # The user's entry point, timed per token.
+
+def cond_run(spec, comp, ecfg, params, toks, tl, n_steps):
+    """Cond mode (the device's gates, one host sync per layer): tokens,
+    per-token host times, per-layer lengths after prefill and after each
+    step, and each step's logits (kept on the device)."""
+    from scope_tpu_torch.models import llama
+    tt = torch.as_tensor(toks, device=DEVICE)
+    ttl = torch.as_tensor(tl, device=DEVICE)
+    t0 = time.perf_counter()
+    logits, cache, state = llama.prefill(spec, comp, ecfg, params, tt, ttl)
+    tok = logits.argmax(-1).to(torch.int32)
+    got, stamps = [int(tok[0])], [time.perf_counter()]
+    lengths, logs = [cache.length[:, 0].clone()], []
+    for s in range(n_steps):
+        logits, cache, state = llama.decode_step(spec, comp, ecfg, params,
+                                                 tok, ttl + s, cache, state)
+        logs.append(logits[0])
+        tok = logits.argmax(-1).to(torch.int32)
+        got.append(int(tok[0]))
+        stamps.append(time.perf_counter())
+        lengths.append(cache.length[:, 0].clone())
+    logs = torch.stack(logs)
+    if not torch.isfinite(logs).all():
+        fail("cond path: non-finite logits")
+    tpot = np.diff([t0] + stamps).tolist()
+    return got, tpot, torch.stack(lengths).tolist(), logs
+
+
+def teacher_forced(spec, comp, ecfg, params, toks, tl, fed, ref_logits):
+    """The host-scheduled decoder fed the cond path's tokens: its logits'
+    norm-wise error against the cond path's, its per-layer lengths after
+    prefill and after each step, and its mirror's length after each
+    step."""
+    from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
+    from scope_tpu_torch.models import llama
+    dec = HostScheduledDecoder(spec, comp, ecfg)
+    ttl = torch.as_tensor(tl, device=DEVICE)
+    logits, cache, state = llama.prefill(
+        spec, comp, ecfg, params, torch.as_tensor(toks, device=DEVICE), ttl)
+    sched = dec.new_scheduler(int(tl[0]))
+    lengths, errs, mirror = [cache.length[:, 0].clone()], [], []
+    for s, ref in enumerate(ref_logits):
+        tok = torch.full((1,), fed[s], dtype=torch.int32, device=DEVICE)
+        logits, cache, state = dec.step(sched, params, tok, ttl + s, cache,
+                                        state)
+        ref = ref.float()
+        errs.append((logits[0].float() - ref).norm() / ref.norm())
+        lengths.append(cache.length[:, 0].clone())
+        mirror.append(sched.length)
+    return (torch.stack(errs).tolist(), torch.stack(lengths).tolist(),
+            mirror)
+
+
+def main_path(spec, comp, ecfg, n_prompt, seed, card):
+    """(a) StreamingGenerator, the user's entry point (host-scheduled);
+    (b) the cond-mode prefill / decode_step loop as the reference, and the
+    host path teacher-forced on its tokens; (c) host_generate with chunked
+    hot runs.  Returns (a)'s launch counts."""
+    from scope_tpu_torch.engine.generate import StreamingGenerator
+    from scope_tpu_torch.engine.host_loop import host_generate
+    L = spec.num_layers
+    name = f"{spec.name} evict_per_qhead={comp.evict_per_qhead}"
+    cap = ecfg.cache_capacity(comp)
+    params, toks, tl = main_inputs(spec, ecfg, n_prompt, seed)
+
+    # (a) the user's entry point, timed per token.
     sg = StreamingGenerator(spec, comp, ecfg, params, eos_ids=(),
                             device=DEVICE)
+    if sg.host_decoder is None:
+        fail(f"{name}: StreamingGenerator did not take the host path")
     sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    res = sg.generate(toks, tl, N_NEW)
-    launches = read_launches()
+    res, launches = counted(f"{name} (a)", L, 1,
+                            lambda: sg.generate(toks, tl, N_NEW))
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
-    tokens = res.tokens[0]
+    host_toks = res.tokens[0]
     if res.gen_lengths[0] != N_NEW or not (
-            (tokens >= 0) & (tokens < spec.vocab_size)).all():
-        fail(f"main path: bad tokens {tokens[:8]}...")
-    for name, n in launches.items():
-        if DEVICE == "cuda" and n != spec.num_layers:
-            fail(f"main path: {name} launched {n} times in one prefill, "
-                 f"expected {spec.num_layers}")
-    decode_s = sum(res.tpot_s[1:])
+            (host_toks >= 0) & (host_toks < spec.vocab_size)).all():
+        fail(f"{name} (a): bad tokens {host_toks[:8]}...")
 
-    # The same run through prefill / decode_step, reading every layer's
-    # cache length after each step.
-    tt = torch.as_tensor(toks, device=DEVICE)
-    ttl = torch.as_tensor(tl, device=DEVICE)
-    t = time.perf_counter()
-    logits, cache, state = llama.prefill(spec, comp, ecfg, params, tt, ttl)
-    tok = logits.argmax(-1).to(torch.int32)
-    got = [int(tok[0])]                        # waits for the device
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    lengths = [cache.length[:, 0].tolist()]
-    for s in range(N_NEW - 1):
-        logits, cache, state = llama.decode_step(spec, comp, ecfg, params,
-                                                 tok, ttl + s, cache, state)
-        if not torch.isfinite(logits).all():
-            fail(f"main path: non-finite logits at decode step {s}")
-        tok = logits.argmax(-1).to(torch.int32)
-        got.append(int(tok[0]))
-        lengths.append(cache.length[:, 0].tolist())
-    waves = [s for s in range(1, len(lengths))
-             if any(b < a for a, b in zip(lengths[s - 1], lengths[s]))]
-    if not waves:
-        fail("main path: no jump wave fired")
+    # (b) cond mode, then the host path fed its tokens.
+    (got, cond_tpot, lengths, logs), _ = counted(
+        f"{name} (b) cond", L, 1, lambda: cond_run(
+            spec, comp, ecfg, params, toks, tl, N_NEW - 1))
+    (errs, h_lengths, mirror), _ = counted(
+        f"{name} (b) host, teacher-forced", L, 1, lambda: teacher_forced(
+            spec, comp, ecfg, params, toks, tl, got, logs))
+    del logs
+    waves, h_waves = wave_steps(lengths), wave_steps(h_lengths)
+    if h_lengths != lengths:
+        s = next(i for i, (a, b) in enumerate(zip(h_lengths, lengths))
+                 if a != b)
+        fail(f"{name}: host and cond per-layer lengths differ after decode "
+             f"step {s - 1}: {h_lengths[s]} vs {lengths[s]}")
+    if any(set(x) != {m} for x, m in zip(h_lengths[1:], mirror)):
+        fail(f"{name}: the host mirror's length left the cache's")
+    if waves[:3] != WAVES or h_waves != waves:
+        fail(f"{name}: waves at {h_waves[:6]} (host) and {waves[:6]} "
+             f"(cond), expected {WAVES} first")
     if max(max(x) for x in lengths) > cap:
-        fail(f"main path: a cache length exceeded capacity {cap}")
-    first = waves[0] - 1                       # decode step index
-    all_layers = all(b < a for a, b in zip(lengths[waves[0] - 1],
-                                            lengths[waves[0]]))
-    same = float(np.mean(np.array(got) == tokens))
-    tpot = np.array(res.tpot_s[1:]) * 1e3
-    print(f"main path {spec.name} evict_per_qhead={per_qhead}: "
-          f"TTFT {res.ttft_s * 1e3:.1f} ms, decode "
-          f"{(N_NEW - 1) / decode_s:.1f} tok/s over {N_NEW - 1} steps "
-          f"(TPOT median {np.median(tpot):.2f} ms, p95 "
-          f"{np.percentile(tpot, 95):.2f} ms), "
-          f"peak memory {peak / 2**30:.2f} GiB, launches per prefill "
-          f"{launches}, prefill length {lengths[0][0]} of capacity {cap}, "
-          f"first jump wave at decode step {first} "
-          f"(all {spec.num_layers} layers: {all_layers}), waves at steps "
-          f"{[w - 1 for w in waves][:6]}, lengths {min(map(min, lengths))}"
-          f"..{max(map(max, lengths))}, StreamingGenerator vs "
-          f"prefill/decode_step token agreement {same:.4f}; warm prefill "
-          f"{prefill_ms:.1f} ms", flush=True)
+        fail(f"{name}: a cache length exceeded capacity {cap}")
+    worst = max(errs)
+    if not worst <= LOGIT_REL:
+        fail(f"{name}: teacher-forced logits off by {worst:.3g} norm-wise "
+             f"at decode step {int(np.argmax(errs))} (tolerance {LOGIT_REL})")
+    diverge = first_difference(host_toks, got)
+    print(f"main path {name} (a) StreamingGenerator, host-scheduled: TTFT "
+          f"{res.ttft_s * 1e3:.1f} ms, {rate(res.tpot_s)}; (b) cond mode: "
+          f"TTFT {cond_tpot[0] * 1e3:.1f} ms, {rate(cond_tpot)}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per prefill {launches}; card "
+          f"{card}", flush=True)
+    print(f"main path {name} host vs cond: per-layer lengths identical at "
+          f"all {len(lengths) - 1} steps ({lengths[0][0]} after prefill, "
+          f"{min(map(min, lengths))}..{max(map(max, lengths))} of capacity "
+          f"{cap}); waves at steps {h_waves[:6]} on both, all {L} layers; "
+          f"mirror = cache length at every step; teacher-forced logits "
+          f"norm-wise error max {worst:.3g}, median {np.median(errs):.3g} "
+          f"(tolerance {LOGIT_REL}); free-running token agreement "
+          f"{np.mean(host_toks == np.array(got)):.4f}, first divergence at "
+          f"token {diverge}", flush=True)
+
+    # (c) host_generate with chunked hot runs (bench.py's setting); it may
+    # run up to 15 steps past max_new, which stays inside (b)'s table.
+    ecfg_c = ecfg.replace(decode_chunk_sizes=(16, 8))
+    if ecfg_c.cache_capacity(comp) != cap:
+        fail(f"{name} (c): chunk slack changed the capacity")
+    (gen, stats), _ = counted(f"{name} (c)", L, 1, lambda: host_generate(
+        spec, comp, ecfg_c, params, toks, tl, N_NEW - 16, device=DEVICE))
+    n_c = stats["decode_steps"]
+    if (set(stats["cache_length"]) != {stats["mirror_length"]}
+            or stats["cache_length"] != lengths[n_c]):
+        fail(f"{name} (c): after {n_c} steps, cache lengths "
+             f"{stats['cache_length']}, mirror {stats['mirror_length']}, "
+             f"per-step path {lengths[n_c]}")
+    print(f"main path {name} (c) host_generate, chunks (16, 8): "
+          f"{rate(spread(stats['tpot_s']))}, tokens of one chunk sharing its "
+          f"time equally; mirror = cache = per-step length "
+          f"{stats['mirror_length']} after {n_c} steps; token agreement with "
+          f"(a) {np.mean(gen[0] == host_toks[:gen.shape[1]]):.4f}; card "
+          f"{card}", flush=True)
     return launches
+
+
+def sync_free(spec, comp, ecfg, n_prompt, seed):
+    """(d) 300 decode steps of step_auto with chunks (16, 8) under
+    torch.cuda.set_sync_debug_mode("error"): hot chunks and the first
+    wave's force step, and no call may wait for the device."""
+    from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
+    from scope_tpu_torch.models import llama
+    ecfg_e = ecfg.replace(decode_chunk_sizes=(16, 8))
+    params, toks, tl = main_inputs(spec, ecfg, n_prompt, seed)
+    dec = HostScheduledDecoder(spec, comp, ecfg_e)
+    ttl = torch.as_tensor(tl, device=DEVICE)
+    logits, cache, state = llama.prefill(
+        spec, comp, ecfg_e, params, torch.as_tensor(toks, device=DEVICE), ttl)
+    tok = logits.argmax(-1).to(torch.int32)
+    sched = dec.new_scheduler(int(tl[0]))
+    # One chunk first, outside the check: first calls set up libraries.
+    out, cache, state = dec.step_auto(sched, params, tok, ttl, cache, state)
+    s, tok = out.shape[1], out[:, -1]
+    sync()
+    chunks = fires = 0
+    if DEVICE == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        while s < 300:
+            length = sched.length
+            out, cache, state = dec.step_auto(sched, params, tok, ttl + s,
+                                              cache, state)
+            n = out.shape[1]
+            chunks += n > 1
+            fires += sched.length < length + n
+            s, tok = s + n, out[:, -1]
+    finally:
+        if DEVICE == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    if chunks < 10 or fires < 1:
+        fail(f"sync check: {chunks} chunks and {fires} fires in {s} steps")
+    print(f"sync check {spec.name} evict_per_qhead={comp.evict_per_qhead}: "
+          f"{s - 16} decode steps of step_auto (chunks (16, 8)) under "
+          f"torch.cuda.set_sync_debug_mode('error'): {chunks} hot chunks, "
+          f"{fires} force step(s), no host sync", flush=True)
 
 
 def main():
@@ -530,7 +721,8 @@ def main():
     launches = {}
     for per_qhead in (True, False):
         launches = main_path(spec, comp.replace(evict_per_qhead=per_qhead),
-                             ecfg, n_prompt, args.seed)
+                             ecfg, n_prompt, args.seed, card)
+    sync_free(spec, comp, ecfg, n_prompt, args.seed)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "scope_tpu")
            for m in sys.modules):
         fail("the port loaded JAX or the JAX package")

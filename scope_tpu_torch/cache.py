@@ -8,9 +8,12 @@ uniform length for the headwise method, which is not ported yet.
 
 Unlike the JAX package's immutable arrays, the port updates ``k``/``v``
 and ``length`` in place during decode (appends and block rewrites), which
-saves a full-buffer copy per step.  Eager bf16/f32 only: the staging ring,
-lazy-eviction ``alive`` mask, Quest pages and quantization scales come in
-later slices.
+saves a full-buffer copy per step.  bf16/f32 only: Quest pages and
+quantization scales come in later slices.  The JAX package's staging ring
+and lazy eviction (``alive`` mask, ``compact_lazy``) are not ported: they
+dodge TPU costs, a buffer copy per in-place update and a slow row gather,
+that the port's in-place CUDA writes and gathers do not pay (ROADMAP §1
+items 9 and 11).
 """
 
 from __future__ import annotations

@@ -1,16 +1,21 @@
 """SCOPE decode-phase budget schedulers over the static slotted cache.
 
-Ported so far: the fixed ("slide"), linear ("adaptive") and jump
-("discontinuous") schedulers, which share :func:`schedule_decision`.  The
-reference's cross-layer class-attribute counters become an explicit
-:class:`SchedState` threaded through the layer loop; each layer call does
-the same counter arithmetic as one reference call, so the
-div-by-(delta * num_layers) schedule is the JAX package's exactly.
+Ported: the fixed ("slide"), linear ("adaptive") and jump
+("discontinuous") schedulers and the h2o metric, which share
+:func:`schedule_decision`.  The reference's cross-layer class-attribute
+counters become an explicit :class:`SchedState` threaded through the layer
+loop; each layer call does the same counter arithmetic as one reference
+call, so the div-by-(delta * num_layers) schedule is the JAX package's
+exactly.  The slm and pyramidinfer metrics come with their methods.
 
-The JAX package gates the rewrite with ``lax.cond`` on the device.  Here
-:func:`block_rewrite` asks ``row_gate.any()`` on the host: one device-to-
-host sync per layer per decode step (16 per step at Llama-3.2-1B), which
-the host-scheduled decode slice removes.
+Two ways to apply a decision:
+- cond mode (``llama.decode_step`` default): :func:`block_rewrite` asks
+  ``row_gate.any()`` on the host, one device-to-host sync per layer per
+  step, where the JAX package has a ``lax.cond``;
+- host scheduling (``engine/host_loop.py``): the host mirrors the gates
+  (``compression/host_sched.py``) and a force step rewrites at
+  :func:`force_pseg` with the host's keep count.  The device is never
+  asked whether to fire.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from scope_tpu_torch.compression.policies import topk_indices
 from scope_tpu_torch.config import CompressionConfig
 from scope_tpu_torch.ops.attention import NEG_INF
 
-_NOT_PORTED = ("h2o", "slm", "pyramidinfer")
+_NOT_PORTED = ("slm", "pyramidinfer")
 
 
 @dataclass
@@ -84,8 +89,8 @@ def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
     metric = comp.decoding_metric
     if metric in _NOT_PORTED:
         raise NotImplementedError(
-            f"decoding metric {metric!r} is not ported yet (ROADMAP §1 "
-            f"item 7)")
+            f"decoding metric {metric!r} comes with its method (ROADMAP §1 "
+            f"item 13)")
     W = comp.decoding_window_size
     r = comp.decoding_recent_size
     B = length.shape[0]
@@ -122,6 +127,12 @@ def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
             state = state.replace(jump_step=torch.where(finished, zero, js),
                                   jump_layer=torch.where(finished, zero, jl))
             row_gate = row_gate & wave
+    elif metric == "h2o":
+        # H2O's own decode metric: gate like fixed, re-rank the whole
+        # cache from slot 0 keeping P+W-r by score, plus the recent r.
+        row_gate = length >= pseg + W
+        n_keep = pseg + W - r
+        pseg = torch.zeros((B,), dtype=i32, device=dev)
     else:
         raise ValueError(f"unknown decoding metric {metric!r}")
 
@@ -138,15 +149,35 @@ def block_width(comp: CompressionConfig, caps: DecodeCaps) -> int:
     return min(caps.keep_cap + comp.decoding_recent_size, caps.capacity)
 
 
+def force_pseg(comp: CompressionConfig, batch: int,
+               prompt_len: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(pseg [B] int32, positional) for a host-planned force rewrite:
+    method-specific metrics re-rank from slot 0 (slm positionally);
+    allkv/fullkv protect the recorded prompt; everything else protects
+    max_capacity_prompt."""
+    positional = comp.decoding_metric == "slm"
+    dev = prompt_len.device
+    if comp.decoding_metric in ("h2o", "slm", "pyramidinfer"):
+        return torch.zeros((batch,), dtype=torch.int32, device=dev), \
+            positional
+    if comp.method in ("allkv", "fullkv"):
+        return prompt_len.to(torch.int32), positional
+    return torch.full((batch,), comp.max_capacity_prompt, dtype=torch.int32,
+                      device=dev), positional
+
+
 def block_map(comp: CompressionConfig, caps: DecodeCaps,
               probs: torch.Tensor, length: torch.Tensor, pseg: torch.Tensor,
-              n_keep: torch.Tensor, row_gate: torch.Tensor):
+              n_keep: torch.Tensor, row_gate: torch.Tensor,
+              positional: bool = False):
     """Src map restricted to the rewritten block [pseg, pseg + blkW):
     [top-n_keep of the decode region by score | last r | identity].
 
     probs: [B, H, S] float32 scores (this step's attention probabilities).
-    Returns (src_blk [B, H, blkW] absolute slot indices int64, new_len [B]
-    int32).  Rows where row_gate is False map to themselves."""
+    positional=True keeps the lowest slot indices instead of the top
+    scores (the slm metric).  Returns (src_blk [B, H, blkW] absolute slot
+    indices int64, new_len [B] int32).  Rows where row_gate is False map
+    to themselves."""
     B, H, S = probs.shape
     r = comp.decoding_recent_size
     keep_cap = min(caps.keep_cap, caps.capacity)
@@ -157,7 +188,11 @@ def block_map(comp: CompressionConfig, caps: DecodeCaps,
     len_b = length[:, None, None].long()
     s_idx = torch.arange(S, device=dev)
     score_region = (s_idx >= pseg_b) & (s_idx < len_b - r)       # [B, 1, S]
-    sc = torch.where(score_region, probs, NEG_INF)
+    if positional:
+        sc = torch.where(score_region, -s_idx.float(), NEG_INF)
+        sc = sc.expand(B, H, S)
+    else:
+        sc = torch.where(score_region, probs, NEG_INF)
     topk = topk_indices(sc, keep_cap)                            # [B, H, K]
 
     nk = n_keep[:, None, None].long()
@@ -172,6 +207,23 @@ def block_map(comp: CompressionConfig, caps: DecodeCaps,
     return src, new_len.to(torch.int32)
 
 
+def gather_block(comp: CompressionConfig, caps: DecodeCaps,
+                 probs: torch.Tensor, ck_l: torch.Tensor, cv_l: torch.Tensor,
+                 length: torch.Tensor, pseg: torch.Tensor,
+                 n_keep: torch.Tensor, row_gate: torch.Tensor,
+                 positional: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The contents of [pseg, pseg + blkW) after the rewrite.
+
+    ck_l/cv_l: [B, H, cap, D].  Returns (kblk, vblk [B, H, blkW, D],
+    new_len [B]); ungated rows get their region unchanged."""
+    B, H, cap, D = ck_l.shape
+    src_blk, new_len = block_map(comp, caps, probs, length, pseg, n_keep,
+                                 row_gate, positional)
+    idx = src_blk.clamp(0, cap - 1)[..., None].expand(B, H, -1, D)
+    return torch.gather(ck_l, 2, idx), torch.gather(cv_l, 2, idx), new_len
+
+
 def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
                   probs: torch.Tensor, ck_l: torch.Tensor,
                   cv_l: torch.Tensor, length: torch.Tensor,
@@ -181,15 +233,12 @@ def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
                              torch.Tensor]:
     """The block rewrite of the JAX package's ``block_rewrite_cond``.
 
-    ck_l/cv_l: [B, H, cap, D].  Returns (kblk, vblk, new_len): kblk/vblk
-    [B, H, blkW, D] are the contents of [pseg, pseg + blkW) after this
-    step, new_len [B].  When no row fires, the region is unchanged and
-    (None, None, length) is returned: there is nothing to write.  Deciding
-    that costs one device-to-host sync (``row_gate.any()``)."""
+    Returns :func:`gather_block`'s (kblk, vblk, new_len) when a row fires.
+    When none fires, the region is unchanged and (None, None, length) is
+    returned: there is nothing to write.  Deciding that costs one
+    device-to-host sync (``row_gate.any()``)."""
     if not bool(row_gate.any()):
         return None, None, length
-    B, H, cap, D = ck_l.shape
-    src_blk, new_len = block_map(comp, caps, probs, length, pseg, n_keep,
-                                 row_gate)
-    idx = src_blk.clamp(0, cap - 1)[..., None].expand(B, H, -1, D)
-    return torch.gather(ck_l, 2, idx), torch.gather(cv_l, 2, idx), new_len
+    return gather_block(comp, caps, probs, ck_l, cv_l, length, pseg, n_keep,
+                        row_gate)
+

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``scope_tpu/config.py`` (the two packages share
 no code): ``ModelSpec`` and ``CompressionConfig`` keep the same fields and
-validation, ``EngineConfig`` keeps the shape fields and the capacity
-derivation of the eager cache this package implements so far.
+validation, ``EngineConfig`` keeps the shape and chunk fields and the
+capacity derivation (quantization is not ported yet; the TPU staging
+ring, lazy eviction and ``uniform_lengths`` are left out on purpose).
 """
 
 from __future__ import annotations
@@ -147,13 +148,21 @@ class EngineConfig:
     max_new_tokens: int = 4096
     prompt_pad_multiple: int = 128
     dtype: str = "bfloat16"           # activations, weights and KV cache
+    # Host-scheduled decode: run fire-free stretches as one
+    # ``llama.decode_steps`` call of n steps, sizes tried largest first;
+    # empty = one dispatch per step (per-token timing).  Eagerly a chunk
+    # only skips the host read of each token, which measures no faster
+    # (PERF.md §5); it is the JAX package's knob and the unit a captured
+    # hot run would replay.
+    decode_chunk_sizes: Tuple[int, ...] = ()
 
     def cache_capacity(self, comp: CompressionConfig) -> int:
         """Physical slot capacity S_max of the per-layer KV buffer.
 
         fixed: steady-state P+W, +1 for the append-before-compress step.
         linear/jump: W grows to ~r + max_new/delta; jump additionally
-        overshoots by up to delta tokens between waves.
+        overshoots by up to delta tokens between waves.  The chunk slack
+        term is the JAX package's, so capacities match it.
         """
         P = comp.max_capacity_prompt
         W = comp.decoding_window_size
@@ -177,6 +186,8 @@ class EngineConfig:
             return _round_up(max(base, max_num + W) + r + 2, 128)
         w_final = self.decode_budget_cap(comp) + r
         slack = comp.delta + 2  # jump-wave overshoot + append slot
+        if self.decode_chunk_sizes:
+            slack += max(self.decode_chunk_sizes)
         return _round_up(base + w_final + slack, 128)
 
     def decode_budget_cap(self, comp: CompressionConfig) -> int:

@@ -4,12 +4,12 @@
   ``generate_scan``: the same prefill, decode steps and eos / ``done_step``
   semantics, as a Python loop over ``decode_step``.
 - :class:`StreamingGenerator` is a host loop with per-token wall-clock
-  timestamps (TTFT / TPOT), for one request at a time.
+  timestamps (TTFT / TPOT), for one request at a time.  Like the JAX
+  package's, it takes the host-scheduled decoder (``engine/host_loop.py``:
+  no per-layer host sync) for every method and metric whose gates the host
+  can mirror, and cond mode otherwise.
 
-Both run cond-mode decode (the scheduler's gates checked per layer on the
-host).  The JAX ``StreamingGenerator`` takes its host-scheduled path for
-h2o+jump; the two paths give identical tokens, and the port's
-host-scheduled decoder is the next slice.
+The two decode paths give identical tokens (tests/test_torch_host_sched.py).
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from scope_tpu_torch.compression.host_sched import host_schedulable
 from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
 from scope_tpu_torch.device import resolve_device
+from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
 from scope_tpu_torch.models import llama
 
 
@@ -83,6 +85,11 @@ class StreamingGenerator:
         self.params = params
         self.eos_ids = set(int(e) for e in eos_ids)
         self.device = resolve_device(device)
+        # Host-orchestrated scheduling where the gates are deterministic:
+        # the hot step then carries no compression logic and no host sync.
+        # None: the path this generator decodes on is cond mode.
+        self.host_decoder = (HostScheduledDecoder(spec, comp, ecfg)
+                             if host_schedulable(comp) else None)
 
     @torch.inference_mode()
     def generate(self, tokens: np.ndarray, true_len: np.ndarray,
@@ -100,12 +107,18 @@ class StreamingGenerator:
         out = [tok]
         done = tok in self.eos_ids
         s = 0
+        sched = (self.host_decoder.new_scheduler(int(true_len[0]))
+                 if self.host_decoder is not None else None)
         while not done and len(out) < max_new:
             tok_arr = torch.full((1,), tok, dtype=torch.int32,
                                  device=self.device)
-            logits, cache, state = llama.decode_step(
-                self.spec, self.comp, self.ecfg, self.params, tok_arr,
-                tl + s, cache, state)
+            if sched is not None:
+                logits, cache, state = self.host_decoder.step(
+                    sched, self.params, tok_arr, tl + s, cache, state)
+            else:
+                logits, cache, state = llama.decode_step(
+                    self.spec, self.comp, self.ecfg, self.params, tok_arr,
+                    tl + s, cache, state)
             tok = int(sample_logits(logits)[0])
             timestamps.append(time.perf_counter())
             out.append(tok)

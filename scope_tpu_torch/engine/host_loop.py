@@ -1,0 +1,175 @@
+"""Host-orchestrated decode loop.
+
+The host mirrors the (deterministic) SCOPE gates and counters
+(``compression/host_sched.py``) and runs per step either the hot step
+(``decode_step(compress_mode="off")``: no scheduler, no eviction
+probabilities, no host sync) or the force step (an unconditional rewrite
+keeping the host's count).  Fire-free stretches may run as one
+``decode_steps`` chunk.  Token-identical to cond mode
+(tests/test_torch_host_sched.py).  The JAX package's lazy eviction and its
+host-run compaction are not ported (ROADMAP §1 item 11).
+
+The JAX package jit-compiles one program per (length bucket, chunk size);
+here a "program" is the call with that ``attn_cap`` / ``n_steps``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from scope_tpu_torch.cache import KVCache
+from scope_tpu_torch.compression.host_sched import (HostScheduler,
+                                                    host_schedulable,
+                                                    host_schedulable_layered)
+from scope_tpu_torch.compression.schedulers import SchedState
+from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
+from scope_tpu_torch.device import resolve_device
+from scope_tpu_torch.models import llama
+
+
+class HostScheduledDecoder:
+    """Decode steps planned on the host for one configuration; each
+    request gets its own mirror from :meth:`new_scheduler`."""
+
+    def __init__(self, spec: ModelSpec, comp: CompressionConfig,
+                 ecfg: EngineConfig):
+        layered = host_schedulable_layered(comp)
+        if not (host_schedulable(comp) or layered):
+            raise ValueError(
+                f"{comp.method}+{comp.decoding_metric} needs the device "
+                f"scheduler; use decode_step(compress_mode='cond')")
+        if layered or comp.method in ("quest", "snapkv", "streamingllm"):
+            raise NotImplementedError(
+                f"host scheduling of {comp.method} comes with the method "
+                f"(ROADMAP §1 item 13)")
+        self.spec, self.comp, self.ecfg = spec, comp, ecfg
+        st = llama.derive_statics(spec, comp, ecfg)
+        self.capacity = st.capacity
+        self._keep_cap = min(st.caps.keep_cap, st.capacity)
+        # Length buckets: hot steps attend over the smallest bucket that
+        # covers the cache length, so a cache far below capacity (a short
+        # prompt, or fullkv early on) does not pay full-capacity attention.
+        buckets, b = [], 512
+        while b < self.capacity:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.capacity)
+        self.buckets = tuple(buckets)
+
+    def bucket_for(self, needed: int) -> int:
+        """The slots a hot step attends over when the cache holds
+        ``needed``."""
+        for b in self.buckets:
+            if needed <= b:
+                return b
+        return self.capacity
+
+    def new_scheduler(self, prompt_len: int) -> HostScheduler:
+        comp = self.comp
+        if comp.method in ("fullkv", "allkv"):
+            kept = prompt_len
+        else:
+            kept = min(comp.max_capacity_prompt, prompt_len)
+        return HostScheduler(comp, self.spec.num_layers, prompt_len, kept,
+                             self._keep_cap, capacity=self.capacity)
+
+    def step(self, sched: HostScheduler, params, tok: torch.Tensor,
+             vpos: torch.Tensor, cache: KVCache, state: SchedState
+             ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+        """One decode step: the force step where the mirror fires, else the
+        hot step at the bucket of the cache length.  Returns (logits
+        [B, V], cache, state)."""
+        plan = sched.plan_step()
+        if plan.fire:
+            n_keep = torch.full((tok.shape[0],), plan.n_keep,
+                                dtype=torch.int32, device=tok.device)
+            return llama.decode_step(self.spec, self.comp, self.ecfg, params,
+                                     tok, vpos, cache, state,
+                                     compress_mode="force",
+                                     force_n_keep=n_keep)
+        return llama.decode_step(self.spec, self.comp, self.ecfg, params, tok,
+                                 vpos, cache, state, compress_mode="off",
+                                 attn_cap=self.bucket_for(sched.length))
+
+    def step_auto(self, sched: HostScheduler, params, tok: torch.Tensor,
+                  vpos: torch.Tensor, cache: KVCache, state: SchedState
+                  ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+        """Advance 1..max(chunk sizes) decode steps, running a fire-free
+        stretch as one ``decode_steps`` chunk (``ecfg.decode_chunk_sizes``,
+        largest first; empty = always per step).  Returns (tokens [B, k]
+        on the device, cache, state); the LAST column is the next step's
+        input token."""
+        sizes = sorted((s for s in self.ecfg.decode_chunk_sizes if s > 1),
+                       reverse=True)
+        if sizes:
+            run = sched.hot_run_length(sizes[0])
+            for n in sizes:
+                if n <= run:
+                    toks, cache, state = llama.decode_steps(
+                        self.spec, self.comp, self.ecfg, params, tok, vpos,
+                        cache, state, n_steps=n,
+                        attn_cap=self.bucket_for(sched.length + n))
+                    sched.advance_hot(n)
+                    return toks, cache, state
+        logits, cache, state = self.step(sched, params, tok, vpos, cache,
+                                         state)
+        return (torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache,
+                state)
+
+
+@torch.inference_mode()
+def host_generate(spec: ModelSpec, comp: CompressionConfig,
+                  ecfg: EngineConfig, params, tokens: np.ndarray,
+                  true_len: np.ndarray, max_new: int,
+                  eos_ids: Tuple[int, ...] = (), device="cuda"
+                  ) -> Tuple[np.ndarray, dict]:
+    """Greedy generation with host scheduling; batch rows must share one
+    prompt length (the host mirrors a single length stream).
+
+    Returns (tokens [B, n] int32, stats): ``ttft_s``, ``tpot_s`` (tokens
+    of one chunk share its end time), and, for checking the mirror, its
+    final ``mirror_length`` beside the cache's per-layer ``cache_length``
+    after ``decode_steps`` steps (a last chunk may run past ``max_new``)."""
+    if len(set(int(t) for t in true_len)) != 1:
+        raise ValueError("host scheduling needs uniform prompt lengths")
+    dev = resolve_device(device)
+    dec = HostScheduledDecoder(spec, comp, ecfg)
+    t0 = time.perf_counter()
+    tl = torch.as_tensor(np.asarray(true_len), dtype=torch.int32, device=dev)
+    logits, cache, state = llama.prefill(
+        spec, comp, ecfg, params,
+        torch.as_tensor(np.asarray(tokens), device=dev), tl)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok.cpu().numpy()]
+    timestamps = [time.perf_counter()]
+    sched = dec.new_scheduler(int(true_len[0]))
+    eos = list(set(int(e) for e in eos_ids))
+    done = np.isin(out[0], eos)
+    s = 0
+    while len(out) < max_new and not done.all():
+        toks, cache, state = dec.step_auto(sched, params, tok, tl + s,
+                                           cache, state)
+        arr = toks.cpu().numpy()                          # [B, k]
+        t_now = time.perf_counter()
+        for j in range(arr.shape[1]):
+            if len(out) >= max_new or done.all():
+                break
+            timestamps.append(t_now)
+            out.append(arr[:, j])
+            done |= np.isin(arr[:, j], eos)
+        tok = toks[:, -1]
+        s += arr.shape[1]
+    stats = {
+        "ttft_s": timestamps[0] - t0,
+        "tpot_s": [timestamps[i] - (timestamps[i - 1] if i else t0)
+                   for i in range(len(timestamps))],
+        "mirror_length": sched.length,
+        "cache_length": cache.length[:, 0].tolist(),
+        "decode_steps": s,
+    }
+    return np.stack(out, axis=1), stats
+

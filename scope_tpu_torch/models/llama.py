@@ -3,9 +3,9 @@
 The port of the JAX package's ``models/llama.py`` main path: ``prefill``
 (every layer: fused qkv + RoPE, GQA expansion, prefill attention with H2O
 score capture through the Hopper kernels, output projection + MLP, then
-prefill compression) and ``decode_step`` in ``compress_mode="cond"`` (per
-layer: append the token, attend with probabilities, schedule, rewrite the
-block when a row fires).
+prefill compression), ``decode_step`` (per layer: append the token, attend,
+then compress as ``compress_mode`` says) and ``decode_steps`` (n hot steps
+with the token kept on the device).
 
 Semantics kept from the reference forward:
 - RoPE is applied before caching; evicted caches keep original phases.
@@ -36,7 +36,8 @@ import torch
 from scope_tpu_torch.cache import KVCache, init_cache, slot_mask
 from scope_tpu_torch.compression.policies import compress_prefill
 from scope_tpu_torch.compression.schedulers import (DecodeCaps, SchedState,
-                                                    block_rewrite,
+                                                    block_rewrite, force_pseg,
+                                                    gather_block,
                                                     schedule_decision,
                                                     static_keep_cap)
 from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
@@ -251,13 +252,13 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
 
 def _grouped_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                               cache_v: torch.Tensor, mask: torch.Tensor,
-                              groups: int
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              groups: int, need_probs: bool = True
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """GQA decode attention without expanding the cache (kv-head layout).
 
     q: [B, Hq, 1, D]; cache: [B, Hkv, S, D]; mask: [B, Hkv, S].  Returns
     (out [B, Hq, 1, D], probs [B, Hkv, S] summed over each kv head's query
-    group, the per-kv-head eviction scores)."""
+    group, the per-kv-head eviction scores; None unless need_probs)."""
     B, Hq, _, D = q.shape
     Hkv = cache_k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -267,51 +268,82 @@ def _grouped_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     logits = torch.where(mask[:, :, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(cache_v.dtype), cache_v)
-    return out.reshape(B, Hq, 1, D), probs.sum(dim=2)
+    return out.reshape(B, Hq, 1, D), (probs.sum(dim=2) if need_probs
+                                      else None)
 
 
-def _write_block(buf: torch.Tensor, l: int, start: int, blk: torch.Tensor,
-                 rows=slice(None)) -> None:
-    """buf[l, rows, :, start:start+W] = blk, with the start clamped so the
-    block fits, as ``lax.dynamic_update_slice`` clamps it."""
-    W = blk.shape[2]
-    start = min(max(start, 0), buf.shape[3] - W)
-    buf[l, rows, :, start:start + W] = blk
+def _write_block(buf: torch.Tensor, l: int, start: torch.Tensor,
+                 blk: torch.Tensor) -> None:
+    """buf[l, b, :, start[b]:start[b]+W] = blk[b], each start clamped so
+    the block fits, as ``lax.dynamic_update_slice`` clamps it.  One
+    index_put at the device's offsets [B] serves uniform and per-row
+    offsets alike, with no host sync."""
+    B, H, W = blk.shape[:3]
+    dest = start.long().clamp(0, buf.shape[3] - W)[:, None, None] + \
+        torch.arange(W, device=blk.device)                        # [B, 1, W]
+    b_idx = torch.arange(B, device=blk.device)[:, None, None]
+    h_idx = torch.arange(H, device=blk.device)[None, :, None]
+    buf[l, b_idx, h_idx, dest] = blk
+
+
+COMPRESS_MODES = ("cond", "off", "force")
 
 
 @torch.inference_mode()
 def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
                 params: Params, token: torch.Tensor, vpos: torch.Tensor,
-                cache: KVCache, state: SchedState
+                cache: KVCache, state: SchedState,
+                compress_mode: str = "cond",
+                force_n_keep: Optional[torch.Tensor] = None,
+                attn_cap: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache, SchedState]:
     """One decode step.  token: [B] (the token being fed); vpos: [B] its
     virtual position (true_len + step).  Returns (next-token logits [B, V],
     cache, state); the cache's k/v/length are updated in place.
 
-    This is the JAX package's ``compress_mode="cond"``: the scheduler's
-    gates are evaluated per layer and the rewrite runs when a row fires
-    (one host sync per layer, see ``schedulers.block_rewrite``).  The
-    host-scheduled "off"/"force" modes are the next slice (ROADMAP §1
-    item 9)."""
+    compress_mode:
+    - "cond": the scheduler's gates are evaluated per layer on the device
+      and the block rewrite runs when a row fires; deciding that costs one
+      host sync per layer (``schedulers.block_rewrite``).  The JAX
+      package's ``lax.cond`` path.
+    - "off": no compression logic and no eviction probabilities: append in
+      place, attend over the first ``attn_cap`` slots (a host-chosen
+      length bucket; None = all).  No host sync.
+    - "force": the rewrite at ``schedulers.force_pseg`` keeping
+      ``force_n_keep`` [B] tokens, on every row; the device is not asked
+      whether to fire.  (The JAX package's per-row ``force_row_gate``
+      serves its serving engine and layered mirrors: ROADMAP §1 items 12
+      and 13.)
+    "off" and "force" are the host-scheduled decode of
+    ``engine/host_loop.py``."""
     _check_supported(spec, comp)
+    if compress_mode not in COMPRESS_MODES:
+        raise ValueError(f"compress_mode {compress_mode!r} is not one of "
+                         f"{COMPRESS_MODES}")
+    metric = comp.decoding_metric
     st = derive_statics(spec, comp, ecfg)
+    if attn_cap is not None:
+        attn_cap = min(attn_cap, st.capacity)
+        st = st._replace(caps=st.caps._replace(capacity=attn_cap))
     B = token.shape[0]
     L = spec.num_layers
     Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     Hc = st.cache_heads
     G = spec.num_kv_groups
-    cap = cache.capacity                # the physical slot count
-    dtype = _dtype(ecfg.dtype)
+    cap = attn_cap or cache.capacity       # the slots attention reads
     dev = params["embed"].device
     vpos = vpos.to(dev)
 
     inv_freq = rope_inv_freq(D, spec.rope_theta, spec.rope_scaling, dev)
     cos, sin = rope_cos_sin(vpos[:, None], inv_freq)          # [B, 1, D]
-    x = params["embed"][token.to(dev).long()[:, None]].to(dtype)
+    x = params["embed"][token.to(dev).long()[:, None]].to(_dtype(ecfg.dtype))
     b_idx = torch.arange(B, device=dev)[:, None]
     h_idx = torch.arange(Hc, device=dev)[None, :]
-    # Every method but allkv protects the static P: one write offset.
-    uniform_pseg = B == 1 or comp.method != "allkv"
+    need_probs = metric != "none" and compress_mode != "off"
+    if compress_mode == "force" and need_probs:
+        pseg, positional = force_pseg(comp, B, cache.prompt_len)
+        row_gate = torch.ones((B,), dtype=torch.bool, device=dev)
+        n_keep = force_n_keep.to(device=dev, dtype=torch.int32)
 
     for l in range(L):
         p = _layer(params, l)
@@ -331,31 +363,30 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         length = length + 1
         cache.length[l] = length
 
-        ck_l, cv_l = cache.k[l], cache.v[l]
+        ck_l, cv_l = cache.k[l, :, :, :cap], cache.v[l, :, :, :cap]
         mask = slot_mask(length, cache.pvalid[l], cache.prefill_gap, cap)
         if comp.evict_per_qhead:
             out, probs = decode_attention(q, ck_l, cv_l, mask)
         else:
-            out, probs = _grouped_decode_attention(q, ck_l, cv_l, mask, G)
+            out, probs = _grouped_decode_attention(q, ck_l, cv_l, mask, G,
+                                                   need_probs)
 
-        if comp.decoding_metric != "none":
+        if need_probs and compress_mode == "force":
+            kblk, vblk, new_len = gather_block(
+                comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
+                row_gate, positional)
+            _write_block(cache.k, l, pseg, kblk)
+            _write_block(cache.v, l, pseg, vblk)
+            cache.length[l] = new_len
+        elif need_probs:                                 # cond
             row_gate, n_keep, pseg, _, state = schedule_decision(
                 comp, st.caps, state, length, cache.prompt_len, l, L)
             kblk, vblk, new_len = block_rewrite(
                 comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
                 row_gate)
             if kblk is not None:
-                if uniform_pseg:
-                    start = (comp.max_capacity_prompt
-                             if comp.method != "allkv" else int(pseg[0]))
-                    _write_block(cache.k, l, start, kblk)
-                    _write_block(cache.v, l, start, vblk)
-                else:            # per-row offsets (allkv batches)
-                    for b, start in enumerate(pseg.tolist()):
-                        _write_block(cache.k, l, start, kblk[b:b + 1],
-                                     slice(b, b + 1))
-                        _write_block(cache.v, l, start, vblk[b:b + 1],
-                                     slice(b, b + 1))
+                _write_block(cache.k, l, pseg, kblk)
+                _write_block(cache.v, l, pseg, vblk)
                 cache.length[l] = new_len
 
         out = out.transpose(1, 2).reshape(B, 1, Hq * D)
@@ -366,3 +397,27 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     logits = _lm_logits(spec, params, x[:, 0])
     return logits, cache, state
+
+
+@torch.inference_mode()
+def decode_steps(spec: ModelSpec, comp: CompressionConfig,
+                 ecfg: EngineConfig, params: Params, token: torch.Tensor,
+                 vpos: torch.Tensor, cache: KVCache, state: SchedState,
+                 n_steps: int, attn_cap: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+    """``n_steps`` greedy hot steps (``compress_mode="off"``), each
+    step's token kept on the device as the next step's input.  Only valid
+    where no compression fires; the host plans such stretches
+    (``HostScheduler.hot_run_length``).  Returns (tokens [B, n_steps] int32,
+    the last one the next step's input, cache, state).  The JAX package's
+    in-chunk staging ring is not ported: it dodges a TPU buffer copy that
+    in-place writes do not make here."""
+    vpos = vpos.to(params["embed"].device)
+    toks = []
+    for i in range(n_steps):
+        logits, cache, state = decode_step(
+            spec, comp, ecfg, params, token, vpos + i, cache, state,
+            compress_mode="off", attn_cap=attn_cap)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(token)
+    return torch.stack(toks, dim=1), cache, state

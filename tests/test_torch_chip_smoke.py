@@ -1,4 +1,5 @@
-"""chip_smoke.py's bound and its refusal to run without a card, on the CPU.
+"""chip_smoke.py's bound, its decode-path helpers and its refusal to run
+without a card, on the CPU.
 
 The bound of each kernel is the largest of three times: bytes over the HBM
 rate, bf16 matmul operations over the tensor-core peak, and exps over the
@@ -124,6 +125,25 @@ def test_compare_holds_out_norm_wise_per_row(capsys):
         chip_smoke.compare("dropped", (dropped,) + ref[1:], ref, [n], loose,
                            chip_smoke.OUT_REL)
     assert "out's norm-wise relative error" in capsys.readouterr().err
+
+
+def test_spread_shares_a_chunk_time_among_its_tokens():
+    """host_generate stamps every token of a chunk with the chunk's end:
+    the first gets the chunk's time, the rest 0.  The TTFT entry stays."""
+    tpot = [0.5, 0.08, 0.0, 0.0, 0.0, 0.01, 0.03, 0.0]
+    got = chip_smoke.spread(tpot)
+    assert got == pytest.approx([0.5, 0.02, 0.02, 0.02, 0.02, 0.01, 0.015,
+                                 0.015])
+    assert sum(got) == pytest.approx(sum(tpot))
+
+
+def test_wave_steps_read_shrinking_layers():
+    """Per-layer lengths after prefill and after each decode step: a step
+    counts when any layer's cache shrank."""
+    lengths = [[10, 10], [11, 11], [12, 8], [13, 9], [9, 9], [10, 10]]
+    assert chip_smoke.wave_steps(lengths) == [1, 3]
+    assert chip_smoke.first_difference([1, 2, 3], [1, 2, 3]) is None
+    assert chip_smoke.first_difference([1, 2, 3], [1, 5, 6]) == 1
 
 
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):

@@ -260,7 +260,7 @@ def _sched_comp(metric, method="h2o"):
 
 @pytest.mark.parametrize("metric,method", [
     ("jump", "h2o"), ("linear", "h2o"), ("fixed", "h2o"), ("jump", "allkv"),
-    ("none", "h2o")])
+    ("none", "h2o"), ("h2o", "h2o")])
 def test_schedule_decision_matches_jax(metric, method):
     """A whole decode run of counter/gate decisions, layer by layer."""
     jc, tc = _sched_comp(metric, method)
@@ -291,7 +291,7 @@ def test_schedule_decision_matches_jax(metric, method):
     assert fired > 0 or metric == "none"
 
 
-@pytest.mark.parametrize("metric", ["h2o", "slm", "pyramidinfer"])
+@pytest.mark.parametrize("metric", ["slm", "pyramidinfer"])
 def test_unported_metrics_raise(metric):
     _, tc = _sched_comp(metric)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -448,7 +448,8 @@ PORT_MODULES = [
     "scope_tpu_torch.ops.flash_prefill", "scope_tpu_torch.ops.attention",
     "scope_tpu_torch.compression.policies",
     "scope_tpu_torch.compression.schedulers",
-    "scope_tpu_torch.engine.generate",
+    "scope_tpu_torch.compression.host_sched",
+    "scope_tpu_torch.engine.host_loop", "scope_tpu_torch.engine.generate",
 ]
 
 
