@@ -7,7 +7,8 @@ Needs one CUDA card and the repository around this file; imports no JAX.
 Three phases, each fatal on failure:
 
 1. build: compile every CUDA kernel of scope_tpu_torch from csrc/ with
-   nvcc (one process per source, all started together).
+   nvcc and the serving engine's slot scheduler with the host C++ compiler
+   (one process per source, all started together).
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, at the head shapes of Llama-3.2-1B and Llama-3.1-8B, a ragged S,
    a sliding window and logits scaled by 8 (bf16 inputs, the plain version
@@ -29,9 +30,20 @@ Three phases, each fatal on failure:
    at every step, and the host path's logits, fed (b)'s tokens, within
    LOGIT_REL of (b)'s; (c) host_generate with chunked hot runs, its mirror
    and cache lengths equal to the per-step path's; (d) 300 steps of hot
-   chunks and a force step under torch.cuda.set_sync_debug_mode("error").  Every kernel launch counter
-   is set to 0 just before each run and read just after; each run prints
-   decode tok/s and TPOT beside the card's name and power limit.
+   chunks and a force step under torch.cuda.set_sync_debug_mode("error");
+   (e) the ServingEngine on the small model, card against CPU (3 slots, 5
+   requests; float32 tokens identical, int8 KV + int8 weights compared);
+   (f) the ServingEngine at 1B, per-kv-head eviction, 16 slots, 24
+   requests of 2100-3000 tokens and 320-384 new tokens, with a bf16 cache
+   and bf16 weights, then int8 KV and int8 weights: exact token counts, no
+   non-finite logits, a force step gating only part of the live rows,
+   mirror = cache length at every finish, first tokens equal to
+   StreamingGenerator's; it prints aggregate tok/s, TTFT / TPOT, peak
+   memory, the hot step's device busy share and the device cost of the
+   quantized converts.  Every kernel launch counter is set to 0 just
+   before each run and read just after (16 launches of each kernel per
+   prefill or admission); each run prints its numbers beside the card's
+   name and power limit, and each phase its seconds.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}.
@@ -688,6 +700,392 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
           f"{fires} force step(s), no host sync", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 3, serving: (e) small model, card against CPU; (f) Llama-3.2-1B
+# ---------------------------------------------------------------------------
+
+def serve(spec, comp, ecfg, params, reqs, device, max_slots, what):
+    """ServingEngine over reqs [(prompt, max_new)]: tokens per request in
+    submit order.  On the card each kernel must launch num_layers times per
+    admission."""
+    from scope_tpu_torch.engine.serving import ServingEngine
+    eng = ServingEngine(spec, comp, ecfg, params, max_slots=max_slots,
+                        device=device)
+    ids = [eng.submit(p, n) for p, n in reqs]
+    if device == "cpu":
+        res = eng.run()
+    else:
+        res, _ = counted(what, spec.num_layers, len(reqs), eng.run)
+    return [res[i] for i in ids]
+
+
+def serving_small_check(seed):
+    """(e) The 2-layer D=64 float32 model served on the card (kernels)
+    against the same engine on the CPU (plain versions): 3 slots, 5 ragged
+    requests, h2o + jump, per-kv-head eviction, chunked hot runs.  Tokens
+    identical with the float32 cache; with int8 KV and int8 weights the
+    first difference, if any, is printed."""
+    from scope_tpu_torch import CompressionConfig, EngineConfig, ModelSpec
+    from scope_tpu_torch.models import llama
+    from scope_tpu_torch.ops import quant
+    spec = ModelSpec(name="smoke-small", vocab_size=512, hidden_size=256,
+                     intermediate_size=512, num_layers=2, num_heads=4,
+                     num_kv_heads=2, head_dim=64)
+    comp = CompressionConfig(method="h2o", decoding_metric="jump",
+                             max_capacity_prompt=64, window_size=8,
+                             decoding_window_size=32,
+                             decoding_recent_size=16, delta=3,
+                             evict_per_qhead=False)
+    ecfg = EngineConfig(max_prompt_len=256, max_new_tokens=48,
+                        dtype="float32", decode_chunk_sizes=(8, 4))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_cpu = llama.init_params(spec, g, torch.float32, device="cpu")
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(1, spec.vocab_size, n).astype(np.int32), m)
+            for n, m in ((230, 40), (171, 33), (120, 45), (250, 24),
+                         (90, 38))]
+    out = []
+    for kv, w8 in (("bfloat16", False), ("int8", True)):
+        pc = quant.quantize_layer_weights(p_cpu) if w8 else p_cpu
+        pg = {n: a.to(DEVICE) for n, a in pc.items() if n != "layers"}
+        pg["layers"] = {n: a.to(DEVICE) for n, a in pc["layers"].items()}
+        e = ecfg.replace(kv_dtype=kv)
+        got = serve(spec, comp, e, pg, reqs, DEVICE, 3,
+                    f"small serving kv={kv} w8={w8}")
+        ref = serve(spec, comp, e, pc, reqs, "cpu", 3, "")
+        if [len(t) for t in got] != [m for _, m in reqs]:
+            fail(f"small serving kv={kv}: token counts "
+                 f"{[len(t) for t in got]}")
+        diffs = [first_difference(a, b) for a, b in zip(got, ref)]
+        same = np.mean([np.mean(np.array(a) == np.array(b))
+                        for a, b in zip(got, ref)])
+        out.append(f"kv={kv} weights={'int8' if w8 else 'float32'}: token "
+                   f"agreement {same:.4f}, first difference per request "
+                   f"{diffs}")
+        if not w8 and any(d is not None for d in diffs):
+            fail(f"small serving (float32 cache): card and CPU tokens differ "
+                 f"at {diffs}")
+    print(f"serving (e) small model (2 layers, D=64, 3 slots, 5 requests, "
+          f"h2o+jump, per-kv-head), card kernels vs CPU plain versions: "
+          f"{'; '.join(out)}", flush=True)
+
+
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 24
+SERVE_PROMPT = (2100, 3000)     # real tokens: the 4096 bucket, so H2O evicts
+SERVE_NEW = (320, 384)          # the first jump waves fire at 293/324/355
+SINGLE_STREAM = (4, 64)         # requests also run through StreamingGenerator,
+                                # and the tokens each of them generates there
+# Request 0 (slot 0) teacher-forced at B=1 on its served tokens: its logits
+# against the ones it got at B=16, norm-wise.  bf16 products of another
+# batch size round differently (a few 1e-3 per layer); a wrong row,
+# position or cache read moves them by O(1).
+TF_STEPS = 64
+BATCH_LOGIT_REL = 0.1
+
+
+def serving_requests(spec, seed):
+    rng = np.random.default_rng(seed + 1)
+    return [(rng.integers(1, spec.vocab_size, int(n)).astype(np.int32),
+             int(m))
+            for n, m in zip(rng.integers(*SERVE_PROMPT, SERVE_REQUESTS),
+                            rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1,
+                                         SERVE_REQUESTS))]
+
+
+def instrument(eng):
+    """Host-side checks wrapped around one engine: force steps whose gate
+    holds only part of the active rows, each slot's mirror length against
+    its cache length when its request finishes (a host read of the device),
+    a device flag of non-finite logits (no host read), and slot 0's logits
+    of the first TF_STEPS decode steps (kept on the device).  Returns the
+    record they fill."""
+    from scope_tpu_torch.models import llama
+    rec = {"force": 0, "partial": 0, "finished": 0, "mirror_off": [],
+           "bad": torch.zeros((), dtype=torch.bool, device=eng.device),
+           "logits": []}
+    step_force, finish = eng._hdec.step_force, eng._finish
+    decode_step = llama.decode_step
+
+    def force(params, tok, vpos, cache, state, n_keep, row_gate=None):
+        active = np.array([s.active for s in eng.slots])
+        gate = np.asarray(row_gate, bool)
+        rec["force"] += 1
+        rec["partial"] += bool(gate[active].any() and not gate[active].all())
+        return step_force(params, tok, vpos, cache, state, n_keep, row_gate)
+
+    def fin(slot):
+        mirror = eng._slot_scheds[slot].length
+        cache = eng.cache.length[:, slot].tolist()
+        if set(cache) != {mirror}:
+            rec["mirror_off"].append((slot, mirror, cache))
+        rec["finished"] += 1
+        finish(slot)
+
+    def checked(*a, **k):
+        out = decode_step(*a, **k)
+        rec["bad"] |= ~torch.isfinite(out[0]).all()
+        if len(rec["logits"]) < TF_STEPS:
+            rec["logits"].append(out[0][0].clone())
+        return out
+
+    eng._hdec.step_force, eng._finish = force, fin
+    llama.decode_step = checked
+    rec["undo"] = lambda: setattr(llama, "decode_step", decode_step)
+    return rec
+
+
+def pct(x, q):
+    return float(np.percentile(np.asarray(x), q))
+
+
+def device_ms(fn, iters: int):
+    """Device kernel ms per call of fn, summed over the kernels the
+    profiler records (device activity only) in iters calls; None where it
+    recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    activities = ([ProfilerActivity.CUDA] if DEVICE == "cuda"
+                  else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def graph_ms(fn, iters: int):
+    """Device ms per call of fn: fn captured once in a CUDA graph, the
+    graph's replays timed by CUDA events, so the host's launch rate does
+    not bound the reading.  None off the card."""
+    if DEVICE != "cuda":
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
+def serving_busy_share(spec, comp, ecfg, params, reqs):
+    """The serving hot step with all SERVE_SLOTS slots live and one request
+    queued (so no chunk runs): (host ms per step over 10 steps, device
+    kernel ms per step over 10 more under the profiler, or None).  Their
+    ratio is the device busy share: the profiled device time over the
+    unprofiled host time, so the profiler's own host cost does not dilute
+    it.  The dispatches run under torch.cuda.set_sync_debug_mode("error")."""
+    from scope_tpu_torch.engine.serving import ServingEngine
+    eng = ServingEngine(spec, comp, ecfg, params, max_slots=SERVE_SLOTS,
+                        pipeline_depth=1, device=DEVICE)
+    for p, n in reqs[:SERVE_SLOTS + 1]:
+        eng.submit(p, n)
+    for _ in range(3):
+        eng.step()
+    dispatch = eng._dispatch
+
+    def sync_free_dispatch():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if DEVICE == "cuda":
+        eng._dispatch = sync_free_dispatch
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        eng.step()
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e2
+    dev = device_ms(eng.step, 10)
+    if eng.sched.queued != 1 or eng.slots[0].dispatched != 25:
+        fail("serving busy share: the window was not 24 single steps with "
+             "every slot live")
+    del eng
+    return host_ms, dev
+
+
+def quant_costs(spec, comp, ecfg, params, qparams, card):
+    """Device ms per decode step (all layers, SERVE_SLOTS rows,
+    ``graph_ms``) of the two converts the quantized path adds: the layer weight
+    products (``wdot``) with bf16 weights and with int8 weights, whose
+    convert writes a bf16 copy of every weight per call; and grouped
+    decode attention over the whole capacity with a bf16 and an int8
+    cache, whose products convert the cache slice per layer."""
+    from scope_tpu_torch.cache import slot_mask
+    from scope_tpu_torch.models import llama
+    from scope_tpu_torch.ops import quant
+    from scope_tpu_torch.ops.common import wdot
+    B, L, D = SERVE_SLOTS, spec.num_layers, spec.head_dim
+    Hkv, G = spec.num_kv_heads, spec.num_kv_groups
+    cap = ecfg.cache_capacity(comp)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = {n: params["layers"][n].shape[1] for n in quant.WEIGHT_NAMES}
+    xs = {n: torch.randn((B, 1, r), generator=g, device=DEVICE,
+                         dtype=torch.bfloat16) for n, r in rows.items()}
+
+    def products(pr):
+        layers = [{n: a[l] for n, a in pr["layers"].items()}
+                  for l in range(L)]
+        return lambda: [wdot(xs[n], p, n) for p in layers for n in xs]
+
+    k = torch.randn((B, Hkv, cap, D), generator=g, device=DEVICE,
+                    dtype=torch.bfloat16)
+    q = torch.randn((B, Hkv * G, 1, D), generator=g, device=DEVICE,
+                    dtype=torch.bfloat16)
+    length = torch.full((B,), cap, dtype=torch.int32, device=DEVICE)
+    mask = slot_mask(length, length[:, None].expand(B, Hkv), 0, cap)
+    ki = quant.quantize(k, quant.calibrate(k))
+
+    def attention(kc):
+        return lambda: [llama._grouped_decode_attention(q, kc, kc, mask, G)
+                        for _ in range(L)]
+
+    t = {"w_bf16": graph_ms(products(params), 10),
+         "w_int8": graph_ms(products(qparams), 10),
+         "a_bf16": graph_ms(attention(k), 10),
+         "a_int8": graph_ms(attention(ki), 10)}
+    if None in t.values():
+        print(f"quantized path's converts: not measured {t}; card {card}",
+              flush=True)
+        return t
+    print(f"quantized path's converts, device ms per decode step ({L} "
+          f"layers, {B} rows, CUDA-graph replays): weight products bf16 "
+          f"{t['w_bf16']:.3f}, int8 {t['w_int8']:.3f} (+"
+          f"{t['w_int8'] - t['w_bf16']:.3f} for the per-call convert); "
+          f"grouped decode attention over {cap} slots, bf16 cache "
+          f"{t['a_bf16']:.3f}, int8 cache {t['a_int8']:.3f} (+"
+          f"{t['a_int8'] - t['a_bf16']:.3f}); card {card}", flush=True)
+    return t
+
+
+def serving_main(seed, card):
+    """(f) Llama-3.2-1B at full width and depth, random bf16 weights, the
+    main path's compression (h2o + jump, P=2048, w=8, W=512, r=256,
+    delta=30) with per-kv-head eviction and chunked hot runs (16, 8):
+    ServingEngine(max_slots=16, pipeline_depth=1) serves 24 ragged requests
+    of 2100-3000 real tokens (the 4096 bucket) and 320-384 new tokens, with
+    a bf16 cache and bf16 weights, then with int8 KV and int8 weights.
+    Returns the bf16 run's launch counts."""
+    from scope_tpu_torch.engine.generate import StreamingGenerator
+    from scope_tpu_torch.engine.serving import ServingEngine
+    from scope_tpu_torch.ops import quant
+    spec, comp, ecfg, _ = main_config()
+    comp = comp.replace(evict_per_qhead=False)
+    ecfg = ecfg.replace(decode_chunk_sizes=(16, 8))
+    params, _, _ = main_inputs(spec, ecfg, 16, seed)
+    reqs = serving_requests(spec, seed)
+    L = spec.num_layers
+    launches = {}
+    for kv, w8 in (("bfloat16", False), ("int8", True)):
+        what = (f"serving (f) {spec.name} kv={kv} weights="
+                f"{'int8' if w8 else 'bf16'}")
+        p = quant.quantize_layer_weights(params) if w8 else params
+        e = ecfg.replace(kv_dtype=kv)
+        sync()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(spec, comp, e, p, max_slots=SERVE_SLOTS,
+                            pipeline_depth=1, device=DEVICE)
+        rec = instrument(eng)
+        ids = [eng.submit(q, n) for q, n in reqs]
+        t0 = time.perf_counter()
+        try:
+            res, got = counted(what, L, len(reqs), eng.run)
+            sync()
+        finally:
+            rec["undo"]()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        toks = [res[i] for i in ids]
+        if [len(t) for t in toks] != [n for _, n in reqs]:
+            fail(f"{what}: token counts {[len(t) for t in toks]}, asked "
+                 f"{[n for _, n in reqs]}")
+        if bool(rec["bad"]):
+            fail(f"{what}: non-finite logits")
+        if rec["partial"] < 1:
+            fail(f"{what}: no force step gated only part of the active rows "
+                 f"({rec['force']} force steps)")
+        if rec["mirror_off"] or rec["finished"] != len(reqs):
+            fail(f"{what}: mirror and cache lengths differ at finish: "
+                 f"{rec['mirror_off'][:4]} ({rec['finished']} finished)")
+        if any(not (0 <= t < spec.vocab_size) for seq in toks for t in seq):
+            fail(f"{what}: token out of the vocabulary")
+        m = [eng.request_metrics[i] for i in ids]
+        ttft = [x["ttft_s"] * 1e3 for x in m]
+        tpot = [x["tpot_s"] * 1e3 for x in m]
+        n_dec = sum(len(t) - 1 for t in toks)       # first tokens: prefill
+        t1 = time.perf_counter()
+        step_ms, dev_ms = serving_busy_share(spec, comp, e, p, reqs)
+        busy = ("not measured" if dev_ms is None else
+                f"{dev_ms:.2f} ms of device time, busy share "
+                f"{dev_ms / step_ms:.3f}")
+        print(f"{what}: {len(reqs)} requests on {SERVE_SLOTS} slots, "
+              f"{n_dec} decode tokens in {wall:.2f} s = {n_dec / wall:.1f} "
+              f"tok/s aggregate (the admissions' prefills inside the "
+              f"window); TTFT median {np.median(ttft):.1f} ms, p95 "
+              f"{pct(ttft, 95):.1f} ms (queueing included); TPOT median "
+              f"{np.median(tpot):.2f} ms, p95 "
+              f"{pct(tpot, 95):.2f} ms; peak memory {peak / 2**30:.2f} GiB; "
+              f"{rec['force']} force steps, {rec['partial']} gating part of "
+              f"the active rows; mirror = cache length at all {rec['finished']}"
+              f" finishes; launches {got} ({L} of each per admission); "
+              f"hot step with all {SERVE_SLOTS} slots live {step_ms:.2f} ms "
+              f"on the host ({busy} under the profiler), dispatch free of "
+              f"host syncs; run {wall:.1f} s, step and profile "
+              f"{time.perf_counter() - t1:.1f} s; card {card}", flush=True)
+        if w8:
+            quant_costs(spec, comp, e, params, p, card)
+        else:
+            launches = got
+            q0 = reqs[0][0]
+            padded = np.zeros((1, e.bucket_for(len(q0))), np.int32)
+            padded[0, :len(q0)] = q0
+            errs, _, _ = teacher_forced(spec, comp, e, p, padded,
+                                        np.array([len(q0)], np.int32),
+                                        toks[0], torch.stack(rec["logits"]))
+            print(f"{what}: request 0 teacher-forced at B=1 on its served "
+                  f"tokens, logits against its B=16 ones norm-wise over "
+                  f"{len(errs)} steps: max {max(errs):.3g}, median "
+                  f"{np.median(errs):.3g} (tolerance {BATCH_LOGIT_REL}); "
+                  f"card {card}", flush=True)
+            if not max(errs) <= BATCH_LOGIT_REL:
+                fail(f"{what}: B=1 and B=16 logits of request 0 differ by "
+                     f"{max(errs):.3g} norm-wise")
+            t1 = time.perf_counter()
+            sg = StreamingGenerator(spec, comp, e, p, eos_ids=(),
+                                    device=DEVICE)
+            agree, first = [], []
+            n_req, n_new = SINGLE_STREAM
+            for (q, _), seq in list(zip(reqs, toks))[:n_req]:
+                padded = np.zeros((1, e.bucket_for(len(q))), np.int32)
+                padded[0, :len(q)] = q
+                one = sg.generate(padded, np.array([len(q)], np.int32), n_new)
+                first.append(int(one.tokens[0, 0]) == seq[0])
+                agree.append(float(np.mean(one.tokens[0]
+                                           == np.array(seq[:n_new]))))
+            print(f"{what}: first token identical to StreamingGenerator's "
+                  f"for {sum(first)} of {len(first)} requests; agreement of "
+                  f"their first {n_new} tokens "
+                  f"{[round(a, 4) for a in agree]} "
+                  f"(batched bf16 decode against B=1), in "
+                  f"{time.perf_counter() - t1:.1f} s; card {card}",
+                  flush=True)
+            if not all(first):
+                fail(f"{what}: first tokens differ from StreamingGenerator's")
+        del eng, rec
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -715,14 +1113,23 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {source}: {line.split(':', 1)[-1].strip()}")
 
-    timing = check_kernels(args.seed)
-    small_model_check(args.seed)
+    def phase(name, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        print(f"phase {name}: {time.time() - t:.1f} s", flush=True)
+        return out
+
+    timing = phase("kernels", check_kernels, args.seed)
+    phase("small model", small_model_check, args.seed)
     spec, comp, ecfg, n_prompt = main_config()
     launches = {}
     for per_qhead in (True, False):
-        launches = main_path(spec, comp.replace(evict_per_qhead=per_qhead),
-                             ecfg, n_prompt, args.seed, card)
-    sync_free(spec, comp, ecfg, n_prompt, args.seed)
+        launches = phase(f"main path per_qhead={per_qhead}", main_path, spec,
+                         comp.replace(evict_per_qhead=per_qhead), ecfg,
+                         n_prompt, args.seed, card)
+    phase("sync check", sync_free, spec, comp, ecfg, n_prompt, args.seed)
+    phase("serving (e)", serving_small_check, args.seed)
+    serve_launches = phase("serving (f)", serving_main, args.seed, card)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "scope_tpu")
            for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -739,6 +1146,8 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": timing["err"]["out" if name == "flash_prefill"
                                          else "colsum"],
+            "launches_serving": serve_launches[name],
+            "launches_per_admission": serve_launches[name] // SERVE_REQUESTS,
             "ms": timing[name], "kernel_ms": timing[name],
             "plain_ms": timing[name + "_plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "design": timing["design"][name],

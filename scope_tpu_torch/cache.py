@@ -8,8 +8,11 @@ uniform length for the headwise method, which is not ported yet.
 
 Unlike the JAX package's immutable arrays, the port updates ``k``/``v``
 and ``length`` in place during decode (appends and block rewrites), which
-saves a full-buffer copy per step.  bf16/f32 only: Quest pages and
-quantization scales come in later slices.  The JAX package's staging ring
+saves a full-buffer copy per step.  The cache stores bf16/f32 values,
+int8 values (``k_scale`` / ``v_scale`` per layer, row, head and channel)
+or packed int4 codes (uint8, two per byte, with ``k_off`` / ``v_off``
+zero points as well); ``ops/quant.py`` has the layouts.  Quest pages come
+with the method (ROADMAP §1 item 13).  The JAX package's staging ring
 and lazy eviction (``alive`` mask, ``compact_lazy``) are not ported: they
 dodge TPU costs, a buffer copy per in-place update and a slow row gather,
 that the port's in-place CUDA writes and gathers do not pay (ROADMAP §1
@@ -36,6 +39,12 @@ class KVCache:
     prefill_gap: int = 0
     # Recorded true prompt length (allkv gates).
     prompt_len: Optional[torch.Tensor] = None   # [B] int32
+    # Quantized caches: per-channel scales [L, B, H, D] float32 (int8 and
+    # int4) and zero points (int4 only); None for bf16/f32 caches.
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    k_off: Optional[torch.Tensor] = None
+    v_off: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -46,20 +55,37 @@ class KVCache:
 
 
 def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
-               head_dim: int, dtype: torch.dtype, device=None) -> KVCache:
+               head_dim: int, dtype: torch.dtype, device=None,
+               kv_dtype: str = "bfloat16") -> KVCache:
+    """An empty cache.  ``dtype`` is the compute dtype (bf16 or f32), which
+    the cache stores unless ``kv_dtype`` is "int8" (int8 [..., D]) or
+    "int4" (uint8 [..., D/2]); quantized caches start with unit scales and
+    zero offsets."""
     if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"cache dtype {dtype} is not ported yet (quantized KV: ROADMAP "
-            f"§1 item 10)")
-    shape = (num_layers, batch, num_heads, capacity, head_dim)
+        raise NotImplementedError(f"compute dtype {dtype} is not supported")
+    int8, int4 = kv_dtype == "int8", kv_dtype == "int4"
+    store = torch.int8 if int8 else (torch.uint8 if int4 else dtype)
+    dstore = head_dim // 2 if int4 else head_dim   # two codes per byte
+    shape = (num_layers, batch, num_heads, capacity, dstore)
+    sshape = (num_layers, batch, num_heads, head_dim)
+
+    def ones():
+        return torch.ones(sshape, dtype=torch.float32, device=device)
+
+    def zeros():
+        return torch.zeros(sshape, dtype=torch.float32, device=device)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=store, device=device),
+        v=torch.zeros(shape, dtype=store, device=device),
         length=torch.zeros((num_layers, batch), dtype=torch.int32,
                            device=device),
         pvalid=torch.zeros((num_layers, batch, num_heads), dtype=torch.int32,
                            device=device),
         prompt_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=ones() if int8 or int4 else None,
+        v_scale=ones() if int8 or int4 else None,
+        k_off=zeros() if int4 else None,
+        v_off=zeros() if int4 else None,
     )
 
 

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``scope_tpu/config.py`` (the two packages share
 no code): ``ModelSpec`` and ``CompressionConfig`` keep the same fields and
-validation, ``EngineConfig`` keeps the shape and chunk fields and the
-capacity derivation (quantization is not ported yet; the TPU staging
-ring, lazy eviction and ``uniform_lengths`` are left out on purpose).
+validation, ``EngineConfig`` keeps the shape, KV-dtype and chunk fields and the
+capacity derivation (the TPU staging ring, lazy eviction and
+``uniform_lengths`` are left out on purpose).
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ DECODE_METRICS = (
     "slm",          # StreamingLLM-only: positional during decode
     "pyramidinfer", # PyramidKV-only: pyramid budget over full cache
 )
+
+KV_DTYPES = ("bfloat16", "int8", "int4")
 
 
 @dataclass(frozen=True)
@@ -147,7 +149,13 @@ class EngineConfig:
     max_prompt_len: int = 8192        # S_cap: prompt bucket ceiling (padded)
     max_new_tokens: int = 4096
     prompt_pad_multiple: int = 128
-    dtype: str = "bfloat16"           # activations, weights and KV cache
+    dtype: str = "bfloat16"           # activations and weights
+    # KV cache storage: "bfloat16" (the compute dtype, whatever ``dtype``
+    # is), "int8" (per-channel symmetric, calibrated once at prefill; the
+    # scales fold into q and the attention output) or "int4" (two
+    # asymmetric per-channel codes per byte; the zero points fold too).
+    # See ops/quant.py.
+    kv_dtype: str = "bfloat16"
     # Host-scheduled decode: run fire-free stretches as one
     # ``llama.decode_steps`` call of n steps, sizes tried largest first;
     # empty = one dispatch per step (per-token timing).  Eagerly a chunk
@@ -155,6 +163,11 @@ class EngineConfig:
     # (PERF.md §5); it is the JAX package's knob and the unit a captured
     # hot run would replay.
     decode_chunk_sizes: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}; one of "
+                             f"{KV_DTYPES}")
 
     def cache_capacity(self, comp: CompressionConfig) -> int:
         """Physical slot capacity S_max of the per-layer KV buffer.

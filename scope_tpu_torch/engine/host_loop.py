@@ -6,8 +6,11 @@ The host mirrors the (deterministic) SCOPE gates and counters
 probabilities, no host sync) or the force step (an unconditional rewrite
 keeping the host's count).  Fire-free stretches may run as one
 ``decode_steps`` chunk.  Token-identical to cond mode
-(tests/test_torch_host_sched.py).  The JAX package's lazy eviction and its
-host-run compaction are not ported (ROADMAP §1 item 11).
+(tests/test_torch_host_sched.py).  The serving engine
+(``engine/serving.py``) drives the same three programs (:meth:`step_off`,
+:meth:`step_force` with per-row gates, :meth:`step_chunk`) from per-slot
+mirrors.  The JAX package's lazy eviction and its host-run compaction are
+not ported (ROADMAP §1 item 11).
 
 The JAX package jit-compiles one program per (length bucket, chunk size);
 here a "program" is the call with that ``attn_cap`` / ``n_steps``.
@@ -77,6 +80,39 @@ class HostScheduledDecoder:
         return HostScheduler(comp, self.spec.num_layers, prompt_len, kept,
                              self._keep_cap, capacity=self.capacity)
 
+    def step_off(self, params, tok: torch.Tensor, vpos: torch.Tensor,
+                 cache: KVCache, state: SchedState, attn_cap: int
+                 ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+        """The hot step: append and attend over the first ``attn_cap``
+        slots, no compression.  Returns (logits [B, V], cache, state)."""
+        return llama.decode_step(self.spec, self.comp, self.ecfg, params,
+                                 tok, vpos, cache, state, compress_mode="off",
+                                 attn_cap=attn_cap)
+
+    def step_force(self, params, tok: torch.Tensor, vpos: torch.Tensor,
+                   cache: KVCache, state: SchedState, n_keep, row_gate=None
+                   ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+        """The force step over the whole capacity: the rows of ``row_gate``
+        [B] (all when None) rewrite keeping ``n_keep`` [B] tokens.  Both may
+        be host arrays: they go to the device without a host sync."""
+        dev = tok.device
+        n_keep = _to_device(n_keep, torch.int32, dev)
+        if row_gate is not None:
+            row_gate = _to_device(row_gate, torch.bool, dev)
+        return llama.decode_step(self.spec, self.comp, self.ecfg, params,
+                                 tok, vpos, cache, state,
+                                 compress_mode="force", force_n_keep=n_keep,
+                                 force_row_gate=row_gate)
+
+    def step_chunk(self, params, tok: torch.Tensor, vpos: torch.Tensor,
+                   cache: KVCache, state: SchedState, n: int, attn_cap: int
+                   ) -> Tuple[torch.Tensor, KVCache, SchedState]:
+        """``n`` greedy hot steps over the first ``attn_cap`` slots, the
+        tokens kept on the device.  Returns (tokens [B, n], cache, state)."""
+        return llama.decode_steps(self.spec, self.comp, self.ecfg, params,
+                                  tok, vpos, cache, state, n_steps=n,
+                                  attn_cap=attn_cap)
+
     def step(self, sched: HostScheduler, params, tok: torch.Tensor,
              vpos: torch.Tensor, cache: KVCache, state: SchedState
              ) -> Tuple[torch.Tensor, KVCache, SchedState]:
@@ -87,13 +123,9 @@ class HostScheduledDecoder:
         if plan.fire:
             n_keep = torch.full((tok.shape[0],), plan.n_keep,
                                 dtype=torch.int32, device=tok.device)
-            return llama.decode_step(self.spec, self.comp, self.ecfg, params,
-                                     tok, vpos, cache, state,
-                                     compress_mode="force",
-                                     force_n_keep=n_keep)
-        return llama.decode_step(self.spec, self.comp, self.ecfg, params, tok,
-                                 vpos, cache, state, compress_mode="off",
-                                 attn_cap=self.bucket_for(sched.length))
+            return self.step_force(params, tok, vpos, cache, state, n_keep)
+        return self.step_off(params, tok, vpos, cache, state,
+                             self.bucket_for(sched.length))
 
     def step_auto(self, sched: HostScheduler, params, tok: torch.Tensor,
                   vpos: torch.Tensor, cache: KVCache, state: SchedState
@@ -109,16 +141,23 @@ class HostScheduledDecoder:
             run = sched.hot_run_length(sizes[0])
             for n in sizes:
                 if n <= run:
-                    toks, cache, state = llama.decode_steps(
-                        self.spec, self.comp, self.ecfg, params, tok, vpos,
-                        cache, state, n_steps=n,
-                        attn_cap=self.bucket_for(sched.length + n))
+                    toks, cache, state = self.step_chunk(
+                        params, tok, vpos, cache, state, n,
+                        self.bucket_for(sched.length + n))
                     sched.advance_hot(n)
                     return toks, cache, state
         logits, cache, state = self.step(sched, params, tok, vpos, cache,
                                          state)
         return (torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache,
                 state)
+
+
+def _to_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A host array or a tensor as ``dtype`` on ``dev``; a host array is
+    copied without waiting (non_blocking), so no host sync is made."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dtype=dtype).to(dev, non_blocking=True)
 
 
 @torch.inference_mode()

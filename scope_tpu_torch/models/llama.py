@@ -44,6 +44,7 @@ from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
 from scope_tpu_torch.device import resolve_device
 from scope_tpu_torch.ops.attention import (NEG_INF, decode_attention,
                                            prefill_attention)
+from scope_tpu_torch.ops import quant
 from scope_tpu_torch.ops.common import (apply_rope, mlp, repeat_kv, rms_norm,
                                         rope_cos_sin, rope_inv_freq, wdot)
 
@@ -118,6 +119,14 @@ def init_params(spec: ModelSpec, generator: Optional[torch.Generator] = None,
 
 def _lm_logits(spec: ModelSpec, params: Params, h: torch.Tensor
                ) -> torch.Tensor:
+    if "lm_head_t" in params:
+        # The head stored in matmul orientation (quant.materialize_lm_head);
+        # int8 carries a per-input-channel scale, folded into h.
+        wt = params["lm_head_t"]
+        if wt.dtype == torch.int8:
+            h = h * params["lm_head_t_scale"].to(h.dtype)
+            return h @ wt.to(h.dtype)
+        return h @ wt
     if spec.tie_word_embeddings:
         return h @ params["embed"].transpose(0, 1)
     return h @ params["lm_head"]
@@ -215,7 +224,8 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     cos, sin = rope_cos_sin(positions, inv_freq)
 
     x = params["embed"][tokens.to(dev).long()].to(dtype)
-    cache = init_cache(L, B, st.cache_heads, st.capacity, D, dtype, dev)
+    cache = init_cache(L, B, st.cache_heads, st.capacity, D, dtype, dev,
+                       kv_dtype=ecfg.kv_dtype)
     cache.prompt_len = tl.clone()
     for l in range(L):
         p = _layer(params, l)
@@ -233,10 +243,19 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
             sc = scores._replace(
                 colsum_all=_group_scores(scores.colsum_all, G))
         res = compress_prefill(comp, l, L, ck, cv, q, sc, tl, st.capacity)
-        cache.k[l] = res.cache_k
-        cache.v[l] = res.cache_v
+        # int8 / int4: calibrate and quantize this layer before it is
+        # stored, so no full-precision cache of all layers is ever held.
+        ck, cv, ks, vs, ko, vo = quant.quantize_prefill_layer(
+            ecfg.kv_dtype, res.cache_k, res.cache_v, res.length, res.pvalid,
+            cache.prefill_gap)
+        cache.k[l] = ck
+        cache.v[l] = cv
         cache.length[l] = res.length
         cache.pvalid[l] = res.pvalid
+        for buf, val in ((cache.k_scale, ks), (cache.v_scale, vs),
+                         (cache.k_off, ko), (cache.v_off, vo)):
+            if buf is not None:
+                buf[l] = val
 
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     # Logits at the last real token of each row.
@@ -256,18 +275,22 @@ def _grouped_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """GQA decode attention without expanding the cache (kv-head layout).
 
-    q: [B, Hq, 1, D]; cache: [B, Hkv, S, D]; mask: [B, Hkv, S].  Returns
-    (out [B, Hq, 1, D], probs [B, Hkv, S] summed over each kv head's query
-    group, the per-kv-head eviction scores; None unless need_probs)."""
+    q: [B, Hq, 1, D]; cache: [B, Hkv, S, D] in its storage dtype (int8 and
+    packed int4 read through ``quant.qk_einsum`` / ``pv_einsum``); mask:
+    [B, Hkv, S].  Returns (out [B, Hq, 1, D], probs [B, Hkv, S] summed over
+    each kv head's query group, the per-kv-head eviction scores; None
+    unless need_probs)."""
     B, Hq, _, D = q.shape
     Hkv = cache_k.shape[1]
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, groups, D)
-    logits = torch.matmul(qg.float(), cache_k.float().transpose(-1, -2))
+    cd = cache_k.dtype if cache_k.dtype.is_floating_point else q.dtype
+    logits = quant.qk_einsum("bhgd,bhsd->bhgs", qg, cache_k, cd,
+                             torch.float32)
     logits = logits * scale
     logits = torch.where(mask[:, :, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(cache_v.dtype), cache_v)
+    out = quant.pv_einsum("bhgs,bhsd->bhgd", probs.to(cd), cache_v, cd)
     return out.reshape(B, Hq, 1, D), (probs.sum(dim=2) if need_probs
                                       else None)
 
@@ -295,6 +318,7 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
                 cache: KVCache, state: SchedState,
                 compress_mode: str = "cond",
                 force_n_keep: Optional[torch.Tensor] = None,
+                force_row_gate: Optional[torch.Tensor] = None,
                 attn_cap: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache, SchedState]:
     """One decode step.  token: [B] (the token being fed); vpos: [B] its
@@ -310,12 +334,18 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
       place, attend over the first ``attn_cap`` slots (a host-chosen
       length bucket; None = all).  No host sync.
     - "force": the rewrite at ``schedulers.force_pseg`` keeping
-      ``force_n_keep`` [B] tokens, on every row; the device is not asked
-      whether to fire.  (The JAX package's per-row ``force_row_gate``
-      serves its serving engine and layered mirrors: ROADMAP §1 items 12
-      and 13.)
+      ``force_n_keep`` [B] tokens, on the rows of ``force_row_gate`` [B]
+      (every row when None); the device is not asked whether to fire.
     "off" and "force" are the host-scheduled decode of
-    ``engine/host_loop.py``."""
+    ``engine/host_loop.py`` and ``engine/serving.py``.
+
+    With an int8 / int4 cache the token is quantized with its row's
+    prefill-calibrated scales before it is stored, the K scale is folded
+    into q and the V scale (and int4's V offset) into the attention output.
+
+    A row whose length has reached the capacity (an idle serving slot,
+    whose tokens are discarded) appends into the last slot, as the JAX
+    package's clamped update does; the rows in use never get there."""
     _check_supported(spec, comp)
     if compress_mode not in COMPRESS_MODES:
         raise ValueError(f"compress_mode {compress_mode!r} is not one of "
@@ -342,8 +372,12 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     need_probs = metric != "none" and compress_mode != "off"
     if compress_mode == "force" and need_probs:
         pseg, positional = force_pseg(comp, B, cache.prompt_len)
-        row_gate = torch.ones((B,), dtype=torch.bool, device=dev)
+        row_gate = (torch.ones((B,), dtype=torch.bool, device=dev)
+                    if force_row_gate is None
+                    else force_row_gate.to(device=dev, dtype=torch.bool))
         n_keep = force_n_keep.to(device=dev, dtype=torch.int32)
+    int4 = ecfg.kv_dtype == "int4"
+    quantized = int4 or ecfg.kv_dtype == "int8"
 
     for l in range(L):
         p = _layer(params, l)
@@ -354,10 +388,19 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         if comp.evict_per_qhead:
             k = repeat_kv(k, G)
             v = repeat_kv(v, G)
+        if quantized:
+            ks_l, vs_l = cache.k_scale[l], cache.v_scale[l]     # [B, Hc, D]
+            if int4:
+                k = quant.quantize4(k, ks_l, cache.k_off[l])
+                v = quant.quantize4(v, vs_l, cache.v_off[l])
+            else:
+                k = quant.quantize(k, ks_l)
+                v = quant.quantize(v, vs_l)
+            q = quant.fold_q_scale(q, ks_l)
 
         # In-place append at (l, b, :, length[b], :).
         length = cache.length[l]
-        pos = length.long()[:, None]
+        pos = length.long().clamp(max=cache.capacity - 1)[:, None]
         cache.k[l, b_idx, h_idx, pos] = k[:, :, 0, :]
         cache.v[l, b_idx, h_idx, pos] = v[:, :, 0, :]
         length = length + 1
@@ -370,6 +413,9 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         else:
             out, probs = _grouped_decode_attention(q, ck_l, cv_l, mask, G,
                                                    need_probs)
+        if quantized:
+            out = quant.fold_out_scale(out, vs_l,
+                                       cache.v_off[l] if int4 else None)
 
         if need_probs and compress_mode == "force":
             kblk, vblk, new_len = gather_block(

@@ -21,6 +21,7 @@ import torch
 
 from scope_tpu_torch.ops.flash_prefill import (NEG_INF, colsum_scores,
                                                flash_prefill)
+from scope_tpu_torch.ops.quant import pv_einsum, qk_einsum
 
 
 class PrefillScores(NamedTuple):
@@ -61,16 +62,20 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token attention over the slotted cache.
 
-    q: [B, H, 1, D]; cache_k/v: [B, H, S_max, D]; slot_mask: [B, H, S_max]
-    bool (True = valid slot).  Returns (out [B, H, 1, D] in the cache's
-    dtype, probs [B, H, S_max] float32): the probabilities double as the
-    compression scores.  Logits and softmax are float32 (bf16 products
-    are exact in float32), the PV product runs in the cache's dtype.
+    q: [B, H, 1, D]; cache_k/v: [B, H, S_max, D] (int8, or packed int4
+    [..., D/2], with their scales already folded into q by the caller);
+    slot_mask: [B, H, S_max] bool (True = valid slot).  Returns (out
+    [B, H, 1, D] in the compute dtype: the cache's, or q's for a quantized
+    cache; probs [B, H, S_max] float32): the probabilities double as the
+    compression scores.  Logits and softmax are float32 (bf16 products and
+    integer codes are exact in float32), the PV product runs in the
+    compute dtype.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), cache_k.float().transpose(-1, -2))
+    cd = cache_k.dtype if cache_k.dtype.is_floating_point else q.dtype
+    logits = qk_einsum("bhqd,bhsd->bhqs", q, cache_k, cd, torch.float32)
     logits = logits * scale
     logits = torch.where(slot_mask[:, :, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(cache_v.dtype), cache_v)
+    out = pv_einsum("bhqs,bhsd->bhqd", probs.to(cd), cache_v, cd)
     return out, probs[:, :, 0, :]

@@ -1,11 +1,14 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
-Each source in ``scope_tpu_torch/csrc/`` compiles on its own into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds).  Libraries land in ``scope_tpu_torch/_build/``, named by a hash of
-every source, header and flag, and are built at first use; ``build()``
-compiles all of them at once, one nvcc per source started together.  A
-missing nvcc or a failed build raises: there is no fallback.
+Each CUDA source in ``scope_tpu_torch/csrc/`` compiles with nvcc, and the
+host C++ source of the serving engine's slot scheduler
+(``scope_tpu_torch/native/scheduler.cpp``) with the host C++ compiler, on
+its own into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds).  Libraries land in
+``scope_tpu_torch/_build/``, named by a hash of every source, header and
+flag, and are built at first use; ``build()`` compiles all of them at once,
+one compiler per source started together.  A missing compiler or a failed
+build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,17 +23,22 @@ from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_prefill.cu", "colsum_scores.cu")
+KERNEL_SOURCES = ("flash_prefill.cu", "colsum_scores.cu")
+HOST_SOURCES = ("scheduler.cpp",)
+SOURCES = KERNEL_SOURCES + HOST_SOURCES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):  # .cu sources and .cuh headers
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + CXX_FLAGS).encode())
+    # .cu sources and .cuh headers, and the host sources.
+    for f in sorted([*CSRC.glob("*.cu*"), *NATIVE.glob("*.cpp")]):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
@@ -50,21 +58,34 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _cxx() -> str:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) found: it is "
+                           "needed to build scope_tpu_torch's slot scheduler")
+    return cxx
+
+
+def _command(source: str, out: Path) -> list:
+    if source in HOST_SOURCES:
+        return [_cxx(), *CXX_FLAGS, "-o", str(out), str(NATIVE / source)]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
+
+
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every source whose library is missing, all in parallel.
 
     Returns the compiler's log (register and shared-memory use from
-    ``-Xptxas -v``) for each source it built."""
+    ``-Xptxas -v`` for the kernels) for each source it built."""
     todo = [s for s in sources if not lib_path(s).exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for s in todo:
         tmp = lib_path(s).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
-        procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[s] = (tmp, subprocess.Popen(_command(s, tmp),
+                                          stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))
     logs, failed = {}, []
@@ -72,7 +93,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
         out, _ = proc.communicate()
         logs[s] = out
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {s} (exit {proc.returncode}):\n"
+            failed.append(f"building {s} failed (exit {proc.returncode}):\n"
                           f"{out}")
         else:
             os.replace(tmp, lib_path(s))
@@ -88,8 +109,9 @@ def load(source: str) -> ctypes.CDLL:
         if not lib_path(source).exists():
             build([source])
         lib = ctypes.CDLL(str(lib_path(source)))
-        lib.scope_error_string.argtypes = [ctypes.c_int]
-        lib.scope_error_string.restype = ctypes.c_char_p
+        if source in KERNEL_SOURCES:
+            lib.scope_error_string.argtypes = [ctypes.c_int]
+            lib.scope_error_string.restype = ctypes.c_char_p
         _loaded[source] = lib
     return lib
 

@@ -80,18 +80,23 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def wdot(x: torch.Tensor, p, name: str) -> torch.Tensor:
-    """Weight matmul ``x @ p[name]`` for bf16 / f32 weights (weight-only
-    int8 is a later slice)."""
+    """Weight matmul ``x @ p[name]``, with optional weight-only int8.
+
+    An int8 ``p[name]`` (``ops/quant.quantize_layer_weights``) is converted
+    to x's dtype and the product scaled per output channel by
+    ``p[name + "_scale"]``.  The convert writes a full-size copy of the
+    weight on every call, where XLA fused it into the product's weight
+    read; PERF.md has its cost on the card."""
     w = p[name]
+    if w.dtype == torch.int8:
+        return (x @ w.to(x.dtype)) * p[name + "_scale"].to(x.dtype)
     if w.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"weight dtype {w.dtype} is not ported yet (int8 weights: "
-            f"ROADMAP §1 item 10)")
+        raise NotImplementedError(f"weight dtype {w.dtype} is not supported")
     return x @ w
 
 
 def mlp(x: torch.Tensor, p) -> torch.Tensor:
-    """SwiGLU MLP over a layer param dict."""
+    """SwiGLU MLP over a layer param dict (int8-weight aware)."""
     g = wdot(x, p, "w_gate")
     u = wdot(x, p, "w_up")
     return wdot(F.silu(g) * u, p, "w_down")

@@ -154,10 +154,16 @@ def test_common_ops_match_jax(op):
 
 
 def test_wdot_rejects_int8_weights():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An int8 weight is refused without its per-output-channel scale
+    (``<name>_scale``, from ops/quant.quantize_layer_weights), and a weight
+    dtype the port has no branch for is refused outright."""
+    with pytest.raises(KeyError, match="w_scale"):
         tcommon.wdot(torch.zeros(2, 4), {"w": torch.zeros(4, 4,
                                                           dtype=torch.int8)},
                      "w")
+    with pytest.raises(NotImplementedError):
+        tcommon.wdot(torch.zeros(2, 4),
+                     {"w": torch.zeros(4, 4, dtype=torch.float16)}, "w")
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +456,8 @@ PORT_MODULES = [
     "scope_tpu_torch.compression.schedulers",
     "scope_tpu_torch.compression.host_sched",
     "scope_tpu_torch.engine.host_loop", "scope_tpu_torch.engine.generate",
+    "scope_tpu_torch.ops.quant", "scope_tpu_torch.native",
+    "scope_tpu_torch.engine.serving",
 ]
 
 
