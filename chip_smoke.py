@@ -14,11 +14,13 @@ Three phases, each fatal on failure:
    a sliding window and logits scaled by 8 (bf16 inputs, the plain version
    in float32 on the same values; then the kernels on those float32
    values, held tightly; pad rows of the bf16 route must read out = 0,
-   m2 = 0, l2 = 1), and time kernel, plain version and, for the
-   attention half only, F.scaled_dot_product_attention over all rows and
-   over the real rows, beside each kernel's bound (bytes, bf16 tensor-core
-   operations or exps, whichever takes longest).  Each kernel's design
-   (tensor-core products, asynchronous copies) is read from its SASS.
+   m2 = 0, l2 = 1), flash_prefill's need_scores=False route too (the 1B
+   shape and the window case; m2 = 0 and l2 = 1 in every row), and time
+   kernel, plain version and, for flash_prefill,
+   F.scaled_dot_product_attention over all rows and over the real rows,
+   beside each kernel's bound (bytes, bf16 tensor-core operations or exps,
+   whichever takes longest).  Each kernel's design (tensor-core products,
+   asynchronous copies) is read from its SASS.
 3. main path: a small model on the card (kernels) against the CPU (plain
    versions; cond mode and the host-scheduled path), then Llama-3.2-1B at
    full width and depth with random bf16 weights: H2O prefill (P=2048,
@@ -40,10 +42,24 @@ Three phases, each fatal on failure:
    mirror = cache length at every finish, first tokens equal to
    StreamingGenerator's; it prints aggregate tok/s, TTFT / TPOT, peak
    memory, the hot step's device busy share and the device cost of the
-   quantized converts.  Every kernel launch counter is set to 0 just
-   before each run and read just after (16 launches of each kernel per
-   prefill or admission); each run prints its numbers beside the card's
-   name and power limit, and each phase its seconds.
+   quantized converts; (g) the other prefill methods: the small model on
+   the card against the CPU (snapkv + jump and streamingllm + slm on the
+   host path, pyramidkv + pyramidinfer and + jump on the layered host path
+   and in cond mode, headwise + jump in cond mode on 4 layers, served
+   pyramidkv + jump and snapkv + jump; tokens and per-layer lengths
+   identical at every step), then 1B with per-kv-head eviction: snapkv,
+   streamingllm (w = P/2) and headwise (cond mode only) at 3000 tokens,
+   pyramidkv at 4090 (its deep branch) with both eviction granularities,
+   each with jump decode for 384 tokens (host and cond per-layer lengths
+   identical, teacher-forced logits within LOGIT_REL, pyramidkv's prefill
+   lengths as pyramid_prefill_kept says and within capacity, headwise's
+   per-head budgets in range), pyramidkv's layered host path under the
+   sync check, and 12 requests on 8 slots served on the device-cond path
+   (pyramidkv + jump).  Every kernel launch counter is set to 0 just
+   before each run and read just after (16 launches of flash_prefill per
+   prefill or admission, and 16 of colsum_scores where the method ranks
+   by cumulative attention: h2o, pyramidkv); each run prints its numbers
+   beside the card's name and power limit, and each phase its seconds.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}.
@@ -157,6 +173,11 @@ OUT_REL = 1e-2
 TOL_F32 = {1.0: 2e-4, 8.0: 1e-3}
 TOPK_MIN = 0.995
 OUTPUTS = ("out", "m2", "l2", "colsum")
+# The need_scores=False route (snapkv, streamingllm and headwise prefill):
+# the attention side alone, held on these cases' inputs with the same
+# tolerances; m2 must read 0 and l2 1 in every row.
+UNSCORED_CASES = ("main_path", "window64")
+UNSCORED = "flash_prefill[need_scores=0]"
 
 
 def kernel_inputs(case, seed):
@@ -233,7 +254,40 @@ def compare(what, got, ref, tl, tol, out_rel):
 
 
 def fmt(d):
-    return " ".join(f"{n}={d[n]:.3g}" for n in OUTPUTS)
+    return " ".join(f"{n}={d[n]:.3g}" for n in OUTPUTS if n in d)
+
+
+def check_unscored(fp, case, q, k, v, ttl, qf, kf, vf):
+    """flash_prefill with need_scores=False, bf16 then float32, against its
+    plain version: out within the scored route's tolerances, m2 = 0 and
+    l2 = 1 exactly in every row.  Returns the bf16 route's errors."""
+    B, H, S, D, tl, window, scale = KERNEL_CASES[case]
+
+    def run(a, b, c):
+        return fp.flash_prefill(a, b, c, ttl, window_size=W,
+                                need_scores=False, sliding_window=window)
+    got, got32 = run(q, k, v), run(qf, kf, vf)
+    ref = fp.flash_prefill_reference(qf, kf, vf, ttl, window_size=W,
+                                     need_scores=False, sliding_window=window)
+    sync()
+    what = f"{case} need_scores=False"
+    for route, g in (("bf16", got), ("float32", got32)):
+        if not ((g[1] == 0).all() and (g[2] == 1).all()):
+            fail(f"{what} {route}: m2 / l2 are not 0 / 1 in every row")
+    err, need, rel = compare(f"{what} bf16", got, ref, tl, TOL, OUT_REL)
+    for b, n in enumerate(tl if DEVICE == "cuda" else ()):
+        if not (got[0][b, :, n:] == 0).all():
+            fail(f"{what} bf16: pad rows of row {b} are not out = 0")
+    t32 = TOL_F32[scale]
+    err32, _, rel32 = compare(f"{what} float32", got32, ref, tl,
+                              {n: (t32, t32) for n in OUTPUTS}, t32)
+    print(f"kernels {what}: B={B} H={H} S={S} D={D} true_len={tl} "
+          f"window={window}; bf16 max_abs_err out={err['out']:.3g}, least "
+          f"atol needed {need['out']:.3g}, relative out {rel['out']:.3g} "
+          f"(tolerance {OUT_REL}); float32 max_abs_err out="
+          f"{err32['out']:.3g}, relative out {rel32['out']:.3g} (tolerance "
+          f"{t32}); m2 = 0 and l2 = 1 in every row", flush=True)
+    return err
 
 
 def check_kernels(seed):
@@ -263,6 +317,8 @@ def check_kernels(seed):
         t32 = TOL_F32[scale]
         err32, _, rel32 = compare(f"{case} float32", got32, ref, tl,
                                   {n: (t32, t32) for n in OUTPUTS}, t32)
+        unscored = (check_unscored(fp, case, q, k, v, ttl, qf, kf, vf)
+                    if case in UNSCORED_CASES else None)
         cs, rcs = got[3], ref[3]
         agree = topk_agreement(cs, rcs, tl)
         if agree < TOPK_MIN:
@@ -278,6 +334,7 @@ def check_kernels(seed):
             m2, l2 = got[1], got[2]
             timing = time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2,
                                   rl2, err)
+            timing["err"][UNSCORED] = unscored["out"]
     return timing
 
 
@@ -301,6 +358,11 @@ def bounds(B, H, S, D, n_real, elem_bytes, exps_per_s):
     flash_ops = B * H * (2 * D * n_real * n_real + 2 * D * att_pairs)
     flash_exps = B * H * (n_real * n_real + diag_pairs)
     flash_bytes = B * H * n_real * (4 * D * elem_bytes + 2 * 4) + 4 * B
+    # flash with need_scores=False: the attention side alone, QK^T and PV
+    # over the causal pairs of real rows and one exp per pair; the same
+    # bytes (m2 / l2 are written, as constants).
+    un_ops = B * H * 4 * D * att_pairs
+    un_exps = B * H * att_pairs
     # colsum: QK^T and one exp over real rows x real keys; q/k/m2/l2 read,
     # colsum written.
     cs_ops = B * H * 2 * D * n_real * n_real
@@ -309,6 +371,7 @@ def bounds(B, H, S, D, n_real, elem_bytes, exps_per_s):
     out = {}
     for name, ops, exps, nbytes in (
             ("flash_prefill", flash_ops, flash_exps, flash_bytes),
+            (UNSCORED, un_ops, un_exps, flash_bytes),
             ("colsum_scores", cs_ops, cs_exps, cs_bytes)):
         terms = {"bytes": nbytes / PEAK_BYTES,
                  "operations": ops / PEAK_BF16_FLOPS,
@@ -328,6 +391,10 @@ def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
             q, k, ttl, m2, l2, window_size=W), 10),
         "flash_prefill_plain": cuda_ms(lambda: fp.flash_prefill_reference(
             qf, kf, vf, ttl, window_size=W, need_scores=True), 3),
+        UNSCORED: cuda_ms(lambda: fp.flash_prefill(
+            q, k, v, ttl, window_size=W, need_scores=False), 10),
+        UNSCORED + "_plain": cuda_ms(lambda: fp.flash_prefill_reference(
+            qf, kf, vf, ttl, window_size=W, need_scores=False), 3),
         "colsum_scores_plain": cuda_ms(lambda: fp.colsum_scores_reference(
             qf, kf, ttl, rm2, rl2, window_size=W), 3),
         "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -349,7 +416,10 @@ def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
           f"{t['sdpa']:.3f} over {S} rows and {t['sdpa_real_rows']:.3f} over "
           f"the {n_real} real rows, yardsticks for the attention half "
           f"only), colsum_scores {t['colsum_scores']:.3f} ms (plain "
-          f"{t['colsum_scores_plain']:.3f}); exp rate {rate:.4g}/s; bounds "
+          f"{t['colsum_scores_plain']:.3f}); flash_prefill need_scores=False "
+          f"{t[UNSCORED]:.3f} ms (plain {t[UNSCORED + '_plain']:.3f}; the "
+          f"same function as SDPA over the real rows); exp rate "
+          f"{rate:.4g}/s; bounds "
           f"{t['bounds']}; bf16 designs from SASS {t['design']}", flush=True)
     return t
 
@@ -385,15 +455,19 @@ def read_launches():
 
 def counted(what, per_prefill, prefills, fn):
     """fn() with every launch counter set to 0 just before and read just
-    after; fails unless each kernel launched per_prefill times in each of
-    the run's prefills.  Returns (fn's result, the counts)."""
+    after; fails unless each kernel launched per_prefill times (an int for
+    both kernels, or a dict by kernel) in each of the run's prefills.
+    Returns (fn's result, the counts)."""
+    if not isinstance(per_prefill, dict):
+        per_prefill = {"flash_prefill": per_prefill,
+                       "colsum_scores": per_prefill}
     reset_launches()
     out = fn()
     launches = read_launches()
-    if DEVICE == "cuda" and any(n != per_prefill * prefills
-                                for n in launches.values()):
+    if DEVICE == "cuda" and any(launches[k] != n * prefills
+                                for k, n in per_prefill.items()):
         fail(f"{what}: launches {launches} over {prefills} prefill(s), "
-             f"expected {per_prefill} of each kernel per prefill")
+             f"expected {per_prefill} per prefill")
     return out, launches
 
 
@@ -432,18 +506,32 @@ def wave_steps(lengths):
             if any(b < a for a, b in zip(lengths[s - 1], lengths[s]))]
 
 
+def small_spec(layers=2):
+    """The 2-layer (or deeper) D=64 model of the card-against-CPU checks."""
+    from scope_tpu_torch import ModelSpec
+    return ModelSpec(name=f"smoke-small-{layers}l", vocab_size=512,
+                     hidden_size=256, intermediate_size=512,
+                     num_layers=layers, num_heads=4, num_kv_heads=2,
+                     head_dim=64)
+
+
+def on_card(params):
+    """A copy of a parameter dict on DEVICE."""
+    out = {n: a.to(DEVICE) for n, a in params.items() if n != "layers"}
+    out["layers"] = {n: a.to(DEVICE) for n, a in params["layers"].items()}
+    return out
+
+
 def small_model_check(seed):
     """Kernels (card) against plain versions (CPU) through the whole path:
     a 2-layer model with Llama head shapes, float32, identical tokens, in
     cond mode (B=2, ragged) and on the host-scheduled path with chunked
     hot runs (B=1)."""
-    from scope_tpu_torch import CompressionConfig, EngineConfig, ModelSpec
+    from scope_tpu_torch import CompressionConfig, EngineConfig
     from scope_tpu_torch.engine.generate import generate
     from scope_tpu_torch.engine.host_loop import host_generate
     from scope_tpu_torch.models import llama
-    spec = ModelSpec(name="smoke-small", vocab_size=512, hidden_size=256,
-                     intermediate_size=512, num_layers=2, num_heads=4,
-                     num_kv_heads=2, head_dim=64)
+    spec = small_spec()
     comp = CompressionConfig(method="h2o", decoding_metric="jump",
                              max_capacity_prompt=64, window_size=8,
                              decoding_window_size=32,
@@ -452,8 +540,7 @@ def small_model_check(seed):
                         dtype="float32")
     g = torch.Generator(device="cpu").manual_seed(seed)
     p_cpu = llama.init_params(spec, g, torch.float32, device="cpu")
-    p_gpu = {n: a.to(DEVICE) for n, a in p_cpu.items() if n != "layers"}
-    p_gpu["layers"] = {n: a.to(DEVICE) for n, a in p_cpu["layers"].items()}
+    p_gpu = on_card(p_cpu)
     rng = np.random.default_rng(seed)
     toks = rng.integers(1, spec.vocab_size, (2, 256)).astype(np.int32)
     tl = np.array([230, 171], np.int32)
@@ -518,7 +605,8 @@ def main_inputs(spec, ecfg, n_prompt, seed):
 def cond_run(spec, comp, ecfg, params, toks, tl, n_steps):
     """Cond mode (the device's gates, one host sync per layer): tokens,
     per-token host times, per-layer lengths after prefill and after each
-    step, and each step's logits (kept on the device)."""
+    step, each step's logits (kept on the device) and the cache's per-head
+    prefill counts (pvalid [L, B, H])."""
     from scope_tpu_torch.models import llama
     tt = torch.as_tensor(toks, device=DEVICE)
     ttl = torch.as_tensor(tl, device=DEVICE)
@@ -539,21 +627,26 @@ def cond_run(spec, comp, ecfg, params, toks, tl, n_steps):
     if not torch.isfinite(logs).all():
         fail("cond path: non-finite logits")
     tpot = np.diff([t0] + stamps).tolist()
-    return got, tpot, torch.stack(lengths).tolist(), logs
+    return got, tpot, torch.stack(lengths).tolist(), logs, cache.pvalid
 
 
 def teacher_forced(spec, comp, ecfg, params, toks, tl, fed, ref_logits):
     """The host-scheduled decoder fed the cond path's tokens: its logits'
     norm-wise error against the cond path's, its per-layer lengths after
-    prefill and after each step, and its mirror's length after each
-    step."""
+    prefill and after each step, and its mirror's per-layer lengths after
+    each step."""
     from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
     from scope_tpu_torch.models import llama
     dec = HostScheduledDecoder(spec, comp, ecfg)
+    # Hot steps attend over the whole capacity, as cond mode does, so both
+    # paths run the same operations on the same shapes.  A narrower length
+    # bucket (pyramidkv's shorter layers) sums the bf16 products in another
+    # order and moved the logits by up to 1.7% norm-wise (PERF.md §6).
+    dec.buckets = (dec.capacity,)
     ttl = torch.as_tensor(tl, device=DEVICE)
     logits, cache, state = llama.prefill(
         spec, comp, ecfg, params, torch.as_tensor(toks, device=DEVICE), ttl)
-    sched = dec.new_scheduler(int(tl[0]))
+    sched = dec.new_scheduler(int(tl[0]), prompt_pad=toks.shape[1])
     lengths, errs, mirror = [cache.length[:, 0].clone()], [], []
     for s, ref in enumerate(ref_logits):
         tok = torch.full((1,), fed[s], dtype=torch.int32, device=DEVICE)
@@ -562,9 +655,15 @@ def teacher_forced(spec, comp, ecfg, params, toks, tl, fed, ref_logits):
         ref = ref.float()
         errs.append((logits[0].float() - ref).norm() / ref.norm())
         lengths.append(cache.length[:, 0].clone())
-        mirror.append(sched.length)
+        mirror.append(mirror_lengths(sched, spec.num_layers))
     return (torch.stack(errs).tolist(), torch.stack(lengths).tolist(),
             mirror)
+
+
+def mirror_lengths(sched, num_layers):
+    """A host mirror's length per layer (one length for every layer unless
+    the mirror is pyramidkv's layered one)."""
+    return list(getattr(sched, "lengths", [sched.length] * num_layers))
 
 
 def main_path(spec, comp, ecfg, n_prompt, seed, card):
@@ -596,7 +695,7 @@ def main_path(spec, comp, ecfg, n_prompt, seed, card):
         fail(f"{name} (a): bad tokens {host_toks[:8]}...")
 
     # (b) cond mode, then the host path fed its tokens.
-    (got, cond_tpot, lengths, logs), _ = counted(
+    (got, cond_tpot, lengths, logs, _), _ = counted(
         f"{name} (b) cond", L, 1, lambda: cond_run(
             spec, comp, ecfg, params, toks, tl, N_NEW - 1))
     (errs, h_lengths, mirror), _ = counted(
@@ -609,7 +708,7 @@ def main_path(spec, comp, ecfg, n_prompt, seed, card):
                  if a != b)
         fail(f"{name}: host and cond per-layer lengths differ after decode "
              f"step {s - 1}: {h_lengths[s]} vs {lengths[s]}")
-    if any(set(x) != {m} for x, m in zip(h_lengths[1:], mirror)):
+    if any(x != m for x, m in zip(h_lengths[1:], mirror)):
         fail(f"{name}: the host mirror's length left the cache's")
     if waves[:3] != WAVES or h_waves != waves:
         fail(f"{name}: waves at {h_waves[:6]} (host) and {waves[:6]} "
@@ -661,7 +760,8 @@ def main_path(spec, comp, ecfg, n_prompt, seed, card):
 def sync_free(spec, comp, ecfg, n_prompt, seed):
     """(d) 300 decode steps of step_auto with chunks (16, 8) under
     torch.cuda.set_sync_debug_mode("error"): hot chunks and the first
-    wave's force step, and no call may wait for the device."""
+    wave's force step (per layer for pyramidkv), and no call may wait for
+    the device."""
     from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
     from scope_tpu_torch.models import llama
     ecfg_e = ecfg.replace(decode_chunk_sizes=(16, 8))
@@ -671,7 +771,8 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
     logits, cache, state = llama.prefill(
         spec, comp, ecfg_e, params, torch.as_tensor(toks, device=DEVICE), ttl)
     tok = logits.argmax(-1).to(torch.int32)
-    sched = dec.new_scheduler(int(tl[0]))
+    sched = dec.new_scheduler(int(tl[0]), prompt_pad=toks.shape[1])
+    L = spec.num_layers
     # One chunk first, outside the check: first calls set up libraries.
     out, cache, state = dec.step_auto(sched, params, tok, ttl, cache, state)
     s, tok = out.shape[1], out[:, -1]
@@ -681,12 +782,13 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
         torch.cuda.set_sync_debug_mode("error")
     try:
         while s < 300:
-            length = sched.length
+            before = mirror_lengths(sched, L)
             out, cache, state = dec.step_auto(sched, params, tok, ttl + s,
                                               cache, state)
             n = out.shape[1]
             chunks += n > 1
-            fires += sched.length < length + n
+            fires += any(a < b + n for a, b in
+                         zip(mirror_lengths(sched, L), before))
             s, tok = s + n, out[:, -1]
     finally:
         if DEVICE == "cuda":
@@ -694,7 +796,8 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
     sync()
     if chunks < 10 or fires < 1:
         fail(f"sync check: {chunks} chunks and {fires} fires in {s} steps")
-    print(f"sync check {spec.name} evict_per_qhead={comp.evict_per_qhead}: "
+    print(f"sync check {spec.name} {comp.method}+{comp.decoding_metric} "
+          f"evict_per_qhead={comp.evict_per_qhead}: "
           f"{s - 16} decode steps of step_auto (chunks (16, 8)) under "
           f"torch.cuda.set_sync_debug_mode('error'): {chunks} hot chunks, "
           f"{fires} force step(s), no host sync", flush=True)
@@ -706,8 +809,8 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
 
 def serve(spec, comp, ecfg, params, reqs, device, max_slots, what):
     """ServingEngine over reqs [(prompt, max_new)]: tokens per request in
-    submit order.  On the card each kernel must launch num_layers times per
-    admission."""
+    submit order.  On the card each kernel must launch as the method's
+    prefill launches it (``per_prefill``) in each admission."""
     from scope_tpu_torch.engine.serving import ServingEngine
     eng = ServingEngine(spec, comp, ecfg, params, max_slots=max_slots,
                         device=device)
@@ -715,8 +818,17 @@ def serve(spec, comp, ecfg, params, reqs, device, max_slots, what):
     if device == "cpu":
         res = eng.run()
     else:
-        res, _ = counted(what, spec.num_layers, len(reqs), eng.run)
+        res, _ = counted(what, per_prefill(spec, comp), len(reqs), eng.run)
     return [res[i] for i in ids]
+
+
+def per_prefill(spec, comp):
+    """Each kernel's launches in one prefill: flash_prefill in every layer,
+    colsum_scores in every layer of the methods that rank by cumulative
+    attention (h2o, pyramidkv)."""
+    L = spec.num_layers
+    return {"flash_prefill": L,
+            "colsum_scores": L if comp.method in ("h2o", "pyramidkv") else 0}
 
 
 def serving_small_check(seed):
@@ -725,12 +837,10 @@ def serving_small_check(seed):
     requests, h2o + jump, per-kv-head eviction, chunked hot runs.  Tokens
     identical with the float32 cache; with int8 KV and int8 weights the
     first difference, if any, is printed."""
-    from scope_tpu_torch import CompressionConfig, EngineConfig, ModelSpec
+    from scope_tpu_torch import CompressionConfig, EngineConfig
     from scope_tpu_torch.models import llama
     from scope_tpu_torch.ops import quant
-    spec = ModelSpec(name="smoke-small", vocab_size=512, hidden_size=256,
-                     intermediate_size=512, num_layers=2, num_heads=4,
-                     num_kv_heads=2, head_dim=64)
+    spec = small_spec()
     comp = CompressionConfig(method="h2o", decoding_metric="jump",
                              max_capacity_prompt=64, window_size=8,
                              decoding_window_size=32,
@@ -747,8 +857,7 @@ def serving_small_check(seed):
     out = []
     for kv, w8 in (("bfloat16", False), ("int8", True)):
         pc = quant.quantize_layer_weights(p_cpu) if w8 else p_cpu
-        pg = {n: a.to(DEVICE) for n, a in pc.items() if n != "layers"}
-        pg["layers"] = {n: a.to(DEVICE) for n, a in pc["layers"].items()}
+        pg = on_card(pc)
         e = ecfg.replace(kv_dtype=kv)
         got = serve(spec, comp, e, pg, reqs, DEVICE, 3,
                     f"small serving kv={kv} w8={w8}")
@@ -1086,6 +1195,310 @@ def serving_main(seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3, methods: (g) SnapKV, StreamingLLM, PyramidKV and headwise
+# ---------------------------------------------------------------------------
+
+def decode_run(spec, comp, ecfg, params, toks, tl, n_steps, device, host):
+    """Prefill, then n_steps greedy decode steps on the host path
+    (HostScheduledDecoder.step, B=1) or in cond mode: tokens [B, n+1] and
+    the per-layer lengths [L, B] after prefill and after each step."""
+    from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
+    from scope_tpu_torch.models import llama
+    ttl = torch.as_tensor(tl, device=device)
+    logits, cache, state = llama.prefill(
+        spec, comp, ecfg, params, torch.as_tensor(toks, device=device), ttl)
+    if host:
+        dec = HostScheduledDecoder(spec, comp, ecfg)
+        sched = dec.new_scheduler(int(tl[0]), prompt_pad=toks.shape[1])
+    tok = logits.argmax(-1).to(torch.int32)
+    out, lengths = [tok.cpu()], [cache.length.tolist()]
+    for s in range(n_steps):
+        if host:
+            logits, cache, state = dec.step(sched, params, tok, ttl + s,
+                                            cache, state)
+        else:
+            logits, cache, state = llama.decode_step(
+                spec, comp, ecfg, params, tok, ttl + s, cache, state)
+        if not torch.isfinite(logits).all():
+            fail(f"{comp.method}+{comp.decoding_metric}: non-finite logits")
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok.cpu())
+        lengths.append(cache.length.tolist())
+    return torch.stack(out, 1).numpy(), lengths
+
+
+def small_comp(method, metric, **kw):
+    from scope_tpu_torch import CompressionConfig
+    return CompressionConfig(
+        method=method, decoding_metric=metric, max_capacity_prompt=64,
+        window_size=32 if method == "streamingllm" else 8,
+        decoding_window_size=32, decoding_recent_size=16, delta=3,
+        headwise_max_budget=64, headwise_min_budget=16, headwise_gamma=0.5,
+        **kw)
+
+
+# (method, metric, host path, layers): the small model's method runs.
+SMALL_METHODS = [("snapkv", "jump", True, 2), ("streamingllm", "slm", True, 2),
+                 ("pyramidkv", "pyramidinfer", True, 2),
+                 ("pyramidkv", "pyramidinfer", False, 2),
+                 ("pyramidkv", "jump", True, 2), ("pyramidkv", "jump", False, 2),
+                 ("headwise", "jump", False, 4)]
+
+
+def small_methods_check(seed):
+    """(g) small: the 2-layer D=64 float32 model (4 layers for headwise,
+    whose first three are not compressed) on the card against the CPU, each
+    method's tokens and per-layer lengths identical at every step: host
+    path at B=1, cond mode at B=2 ragged; then the ServingEngine (3 slots,
+    5 requests) for pyramidkv + jump (device cond, per-row counters) and
+    snapkv + jump (host mode)."""
+    from scope_tpu_torch import EngineConfig
+    from scope_tpu_torch.models import llama
+    ecfg = EngineConfig(max_prompt_len=256, max_new_tokens=48,
+                        dtype="float32")
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, 512, (2, 256)).astype(np.int32)
+    tl = np.array([230, 171], np.int32)
+    weights, done = {}, []
+    for method, metric, host, layers in SMALL_METHODS:
+        spec = small_spec(layers)
+        if layers not in weights:
+            g = torch.Generator(device="cpu").manual_seed(seed)
+            p_cpu = llama.init_params(spec, g, torch.float32, device="cpu")
+            weights[layers] = (p_cpu, on_card(p_cpu))
+        p_cpu, p_gpu = weights[layers]
+        comp = small_comp(method, metric, evict_per_qhead=not host)
+        B = 1 if host else 2
+        what = (f"small model {method}+{metric} "
+                f"{'host path' if host else 'cond mode'}")
+        (got, lens), _ = counted(what, per_prefill(spec, comp), 1,
+                                 lambda: decode_run(spec, comp, ecfg, p_gpu,
+                                                    toks[:B], tl[:B], 47,
+                                                    DEVICE, host))
+        ref, ref_lens = decode_run(spec, comp, ecfg, p_cpu, toks[:B], tl[:B],
+                                   47, "cpu", host)
+        if not (got == ref).all() or lens != ref_lens:
+            fail(f"{what}: card and CPU differ (tokens from "
+                 f"{first_difference(got[0], ref[0])}, lengths "
+                 f"{lens != ref_lens})")
+        # A step that fires ends no longer than it began.
+        if not any((np.array(b) <= np.array(a)).any()
+                   for a, b in zip(lens, lens[1:])):
+            fail(f"{what}: no decode compression fired")
+        done.append(f"{method}+{metric} {'host' if host else 'cond'} "
+                    f"(lengths {lens[0]} -> {lens[-1]})")
+    reqs = [(rng.integers(1, 512, n).astype(np.int32), m)
+            for n, m in ((230, 40), (171, 33), (120, 45), (250, 24),
+                         (90, 38))]
+    for method in ("pyramidkv", "snapkv"):
+        spec = small_spec(2)
+        p_cpu, p_gpu = weights[2]
+        comp = small_comp(method, "jump", evict_per_qhead=False)
+        got = serve(spec, comp, ecfg, p_gpu, reqs, DEVICE, 3,
+                    f"small serving {method}+jump")
+        ref = serve(spec, comp, ecfg, p_cpu, reqs, "cpu", 3, "")
+        if got != ref or [len(t) for t in got] != [m for _, m in reqs]:
+            fail(f"small serving {method}+jump: card and CPU differ at "
+                 f"{[first_difference(a, b) for a, b in zip(got, ref)]}")
+        done.append(f"serving {method}+jump (5 requests, 3 slots)")
+    print(f"methods (g) small model (D=64, float32), card kernels vs CPU "
+          f"plain versions, tokens and per-layer lengths identical at every "
+          f"step: {'; '.join(done)}", flush=True)
+
+
+def methods_config(method, per_qhead):
+    """(g) at Llama-3.2-1B: the main path's model and knobs with another
+    prefill method and jump decode.  streamingllm's window is the
+    reference's P // 2; headwise budgets 2048 tokens at most, 128 at
+    least, to coverage 0.95; pyramidkv's 4090-token prompt takes its deep
+    branch (shallow layers keep up to 3986 tokens)."""
+    spec, comp, ecfg, _ = main_config()
+    comp = comp.replace(method=method, evict_per_qhead=per_qhead)
+    if method == "streamingllm":
+        comp = comp.replace(window_size=comp.max_capacity_prompt // 2)
+    if method == "headwise":
+        comp = comp.replace(headwise_max_budget=2048,
+                            headwise_min_budget=128, headwise_gamma=0.95)
+    return spec, comp, ecfg, 4090 if method == "pyramidkv" else 3000
+
+
+def method_path(spec, comp, ecfg, n_prompt, seed, card):
+    """(g) one method at 1B: StreamingGenerator on the host path (timed),
+    the cond-mode loop as the reference, and the host path teacher-forced
+    on its tokens (per-layer lengths and fire steps identical, logits
+    within LOGIT_REL); headwise runs cond mode only.  Returns the
+    launches of the run the user's entry point made."""
+    from scope_tpu_torch.compression.host_sched import pyramid_prefill_kept
+    from scope_tpu_torch.engine.generate import StreamingGenerator
+    L = spec.num_layers
+    host = comp.method != "headwise"
+    name = (f"methods (g) {spec.name} {comp.method}+{comp.decoding_metric} "
+            f"evict_per_qhead={comp.evict_per_qhead}")
+    cap = ecfg.cache_capacity(comp)
+    params, toks, tl = main_inputs(spec, ecfg, n_prompt, seed)
+    expect = per_prefill(spec, comp)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    timed = ""
+    if host:
+        sg = StreamingGenerator(spec, comp, ecfg, params, eos_ids=(),
+                                device=DEVICE)
+        if sg.host_decoder is None or (
+                sg.host_decoder.layered != (comp.method == "pyramidkv")):
+            fail(f"{name}: StreamingGenerator did not take the host path")
+        res, launches = counted(f"{name} StreamingGenerator", expect, 1,
+                                lambda: sg.generate(toks, tl, N_NEW))
+        seq = res.tokens[0]
+        if res.gen_lengths[0] != N_NEW or not (
+                (seq >= 0) & (seq < spec.vocab_size)).all():
+            fail(f"{name}: bad tokens {seq[:8]}...")
+        timed = (f"StreamingGenerator (host path) TTFT {res.ttft_s * 1e3:.1f}"
+                 f" ms, {rate(res.tpot_s)}; ")
+    (got, cond_tpot, lengths, logs, pvalid), launches_c = counted(
+        f"{name} cond", expect, 1, lambda: cond_run(
+            spec, comp, ecfg, params, toks, tl, N_NEW - 1))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    if not host:
+        launches = launches_c
+    top = max(max(x) for x in lengths)
+    if top > cap:
+        fail(f"{name}: a cache length {top} exceeded capacity {cap}")
+    extra = ""
+    if comp.method == "pyramidkv":
+        kept = pyramid_prefill_kept(comp, L, n_prompt, toks.shape[1])
+        if lengths[0] != kept:
+            fail(f"{name}: prefill lengths {lengths[0]}, expected {kept}")
+        extra = f"prefill lengths {kept[0]}..{kept[-1]} of capacity {cap}; "
+    if comp.method == "headwise":
+        pv = pvalid[:, 0].cpu()                                  # [L, H]
+        gap, low = comp.headwise_max_budget, comp.headwise_min_budget
+        full = min(n_prompt, gap)
+        if not (((pv >= low) & (pv <= gap)).all()
+                and (pv[:3] == full).all()):
+            fail(f"{name}: pvalid outside [{low}, {gap}] or layers 0-2 not "
+                 f"at {full}: {pv.tolist()}")
+        extra = (f"pvalid layers 0-2 = {full}, layers 3-{L - 1} "
+                 f"{int(pv[3:].min())}..{int(pv[3:].max())}; ")
+    waves = wave_steps(lengths)
+    if not waves:
+        fail(f"{name}: no decode compression fired in {N_NEW} tokens")
+    if host:
+        (errs, h_lengths, mirror), _ = counted(
+            f"{name} host, teacher-forced", expect, 1, lambda: teacher_forced(
+                spec, comp, ecfg, params, toks, tl, got, logs))
+        if h_lengths != lengths:
+            s = next(i for i, (a, b) in enumerate(zip(h_lengths, lengths))
+                     if a != b)
+            fail(f"{name}: host and cond per-layer lengths differ after "
+                 f"decode step {s - 1}: {h_lengths[s]} vs {lengths[s]}")
+        if any(x != m for x, m in zip(h_lengths[1:], mirror)):
+            fail(f"{name}: the host mirror's lengths left the cache's")
+        worst = max(errs)
+        if not worst <= LOGIT_REL:
+            fail(f"{name}: teacher-forced logits off by {worst:.3g} "
+                 f"norm-wise at step {int(np.argmax(errs))}")
+        extra += (f"host = cond per-layer lengths at all {N_NEW - 1} steps, "
+                  f"teacher-forced logits max {worst:.3g} (tolerance "
+                  f"{LOGIT_REL}), free-running agreement "
+                  f"{np.mean(seq == np.array(got)):.4f}; ")
+    del logs
+    print(f"{name}: {timed}cond mode TTFT {cond_tpot[0] * 1e3:.1f} ms, "
+          f"{rate(cond_tpot)}; peak memory {peak / 2**30:.2f} GiB; {extra}"
+          f"fire steps {waves[:6]}; launches per prefill {launches}; card "
+          f"{card}", flush=True)
+    return launches
+
+
+SERVE_G = dict(slots=8, requests=12, prompt=(2100, 4090), new=128)
+
+
+def serving_methods(seed, card):
+    """(g) serving at 1B on the device-cond path: pyramidkv + jump,
+    per-kv-head eviction, 8 slots, 12 requests of 2100-4090 real tokens and
+    128 new tokens.  Exact token counts, no non-finite logits, every
+    slot's per-layer lengths within capacity at each finish, 16 launches
+    of each kernel per admission."""
+    from scope_tpu_torch.engine.serving import ServingEngine
+    from scope_tpu_torch.models import llama
+    spec, comp, ecfg, _ = methods_config("pyramidkv", False)
+    cap = ecfg.cache_capacity(comp)
+    params, _, _ = main_inputs(spec, ecfg, 16, seed)
+    rng = np.random.default_rng(seed + 2)
+    n = SERVE_G["requests"]
+    reqs = [(rng.integers(1, spec.vocab_size, int(k)).astype(np.int32),
+             SERVE_G["new"]) for k in rng.integers(*SERVE_G["prompt"], n)]
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(spec, comp, ecfg, params,
+                        max_slots=SERVE_G["slots"], pipeline_depth=1,
+                        device=DEVICE)
+    if eng._host_mode or eng.state.step.shape != (SERVE_G["slots"],):
+        fail("serving (g): pyramidkv + jump did not take the device-cond "
+             "path with per-row counters")
+    over, bad = [], torch.zeros((), dtype=torch.bool, device=eng.device)
+    finish, decode_step = eng._finish, llama.decode_step
+
+    def fin(slot):
+        top = int(eng.cache.length[:, slot].max())
+        if top > cap:
+            over.append((slot, top))
+        finish(slot)
+
+    def checked(*a, **k):
+        nonlocal bad
+        out = decode_step(*a, **k)
+        bad = bad | ~torch.isfinite(out[0]).all()
+        return out
+    eng._finish, llama.decode_step = fin, checked
+    ids = [eng.submit(q, m) for q, m in reqs]
+    what = f"serving (g) {spec.name} pyramidkv+jump device-cond"
+    t0 = time.perf_counter()
+    try:
+        res, got = counted(what, per_prefill(spec, comp), n, eng.run)
+        sync()
+    finally:
+        llama.decode_step = decode_step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    toks = [res[i] for i in ids]
+    if [len(t) for t in toks] != [m for _, m in reqs]:
+        fail(f"{what}: token counts {[len(t) for t in toks]}")
+    if bool(bad) or over:
+        fail(f"{what}: non-finite logits ({bool(bad)}) or lengths over "
+             f"capacity {cap} at finish {over[:4]}")
+    m = [eng.request_metrics[i] for i in ids]
+    ttft = [x["ttft_s"] * 1e3 for x in m]
+    tpot = [x["tpot_s"] * 1e3 for x in m]
+    n_dec = sum(len(t) - 1 for t in toks)
+    print(f"{what}: {n} requests on {SERVE_G['slots']} slots, {n_dec} decode "
+          f"tokens in {wall:.2f} s = {n_dec / wall:.1f} tok/s aggregate "
+          f"(admissions inside); TTFT median {np.median(ttft):.1f} ms, p95 "
+          f"{pct(ttft, 95):.1f} ms; TPOT median {np.median(tpot):.2f} ms; "
+          f"peak memory {peak / 2**30:.2f} GiB; lengths within capacity {cap}"
+          f" at all {n} finishes; launches {got}; card {card}", flush=True)
+
+
+def methods_main(seed, card):
+    """(g) at 1B: each method's path, pyramidkv's at both eviction
+    granularities, then pyramidkv's layered host path under the sync check
+    and the device-cond serving run.  Returns snapkv's launches (the
+    need_scores=False route's)."""
+    launches = {}
+    for method, per_qhead in (("snapkv", False), ("streamingllm", False),
+                              ("pyramidkv", True), ("pyramidkv", False),
+                              ("headwise", False)):
+        spec, comp, ecfg, n_prompt = methods_config(method, per_qhead)
+        got = method_path(spec, comp, ecfg, n_prompt, seed, card)
+        launches.setdefault(method, got)
+    spec, comp, ecfg, n_prompt = methods_config("pyramidkv", False)
+    sync_free(spec, comp, ecfg, n_prompt, seed)
+    serving_methods(seed, card)
+    return launches["snapkv"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1130,34 +1543,54 @@ def main():
     phase("sync check", sync_free, spec, comp, ecfg, n_prompt, args.seed)
     phase("serving (e)", serving_small_check, args.seed)
     serve_launches = phase("serving (f)", serving_main, args.seed, card)
+    t = time.time()
+    phase("methods (g) small model", small_methods_check, args.seed)
+    unscored_launches = phase("methods (g) Llama-3.2-1B", methods_main,
+                              args.seed, card)
+    print(f"phase methods (g): {time.time() - t:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "scope_tpu")
            for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
 
-    sources = {"flash_prefill": ("scope_tpu_torch/csrc/flash_prefill.cu",
-                                 "scope_tpu/ops/pallas/flash_prefill.py:179"),
+    flash = ("scope_tpu_torch/csrc/flash_prefill.cu",
+             "scope_tpu/ops/pallas/flash_prefill.py:179")
+    sources = {"flash_prefill": flash,
                "colsum_scores": ("scope_tpu_torch/csrc/colsum_scores.cu",
-                                 "scope_tpu/ops/pallas/flash_prefill.py:299")}
+                                 "scope_tpu/ops/pallas/flash_prefill.py:299"),
+               UNSCORED: flash}
+    sdpa = ("F.scaled_dot_product_attention(is_causal=True), the attention "
+            "half only")
     kernels = []
     for name, (src, replaces) in sources.items():
         bound_ms, bound_by = timing["bounds"][name]
-        kernels.append({
+        base = name.split("[")[0]
+        entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": timing["err"]["out" if name == "flash_prefill"
-                                         else "colsum"],
-            "launches_serving": serve_launches[name],
-            "launches_per_admission": serve_launches[name] // SERVE_REQUESTS,
+            "replaces": replaces, "launches": launches[base],
+            "max_abs_err": timing["err"]["colsum" if base == "colsum_scores"
+                                         else "out"],
             "ms": timing[name], "kernel_ms": timing[name],
             "plain_ms": timing[name + "_plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "design": timing["design"][name],
-            "library_ms": timing["sdpa"] if name == "flash_prefill" else None,
+            "bound_by": bound_by, "design": timing["design"][base],
+            "library_ms": timing["sdpa"] if base == "flash_prefill" else None,
             "library_real_rows_ms": (timing["sdpa_real_rows"]
-                                     if name == "flash_prefill" else None),
-            "library": ("F.scaled_dot_product_attention(is_causal=True), the "
-                        "attention half only" if name == "flash_prefill"
-                        else None),
-        })
+                                     if base == "flash_prefill" else None),
+            "library": sdpa if name == "flash_prefill" else None,
+        }
+        if name == UNSCORED:
+            # Launched by snapkv's (and streamingllm's, headwise's)
+            # prefill, phase (g); the same function as SDPA over the real
+            # rows.
+            entry.update(
+                launches=unscored_launches["flash_prefill"],
+                max_abs_err=timing["err"][UNSCORED],
+                library="F.scaled_dot_product_attention(is_causal=True), "
+                        "the same function over the real rows")
+        else:
+            entry.update(
+                launches_serving=serve_launches[name],
+                launches_per_admission=serve_launches[name] // SERVE_REQUESTS)
+        kernels.append(entry)
     print(f"total {time.time() - t0:.1f} s; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

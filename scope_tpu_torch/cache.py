@@ -4,7 +4,8 @@ A fixed-capacity buffer per layer plus explicit length bookkeeping, laid
 out as in the JAX package: slots [0, length) are valid and ordered
 [compacted prefill | kept decode | recent window].  ``pvalid`` tracks a
 per-head valid count inside the prefill segment; it only diverges from the
-uniform length for the headwise method, which is not ported yet.
+uniform length for the headwise method, whose prefill segment is a reserved
+``prefill_gap`` of slots with decode tokens appended after it.
 
 Unlike the JAX package's immutable arrays, the port updates ``k``/``v``
 and ``length`` in place during decode (appends and block rewrites), which
@@ -56,11 +57,12 @@ class KVCache:
 
 def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
                head_dim: int, dtype: torch.dtype, device=None,
-               kv_dtype: str = "bfloat16") -> KVCache:
+               kv_dtype: str = "bfloat16", prefill_gap: int = 0) -> KVCache:
     """An empty cache.  ``dtype`` is the compute dtype (bf16 or f32), which
     the cache stores unless ``kv_dtype`` is "int8" (int8 [..., D]) or
     "int4" (uint8 [..., D/2]); quantized caches start with unit scales and
-    zero offsets."""
+    zero offsets.  ``prefill_gap``: the reserved prefill segment (headwise's
+    ``headwise_max_budget``; 0 for the contiguous layout)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {dtype} is not supported")
     int8, int4 = kv_dtype == "int8", kv_dtype == "int4"
@@ -81,6 +83,7 @@ def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
                            device=device),
         pvalid=torch.zeros((num_layers, batch, num_heads), dtype=torch.int32,
                            device=device),
+        prefill_gap=prefill_gap,
         prompt_len=torch.zeros((batch,), dtype=torch.int32, device=device),
         k_scale=ones() if int8 or int4 else None,
         v_scale=ones() if int8 or int4 else None,

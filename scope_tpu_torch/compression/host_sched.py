@@ -10,17 +10,20 @@ force step with an unconditional rewrite (``compress_mode="force"``): the
 device is never asked whether to fire, and the hot step needs no host
 sync.
 
-A copy of the JAX package's ``compression/host_sched.py`` for the
-layer-uniform methods (:class:`HostScheduler`), without its lazy-eviction
-mirror (the physical fill pointer and the compaction schedule), which the
-port does not need (ROADMAP §1 item 11).  The per-layer mirrors of
-pyramidkv and quest (``LayeredHostScheduler``, ``QuestHostScheduler``,
-``pyramid_prefill_kept``) come with those methods (ROADMAP §1 item 13).
+A copy of the JAX package's ``compression/host_sched.py``: the
+layer-uniform methods' mirror (:class:`HostScheduler`), without its
+lazy-eviction mirror (the physical fill pointer and the compaction
+schedule), which the port does not need (ROADMAP §1 item 11), and
+pyramidkv's per-layer mirror (:class:`LayeredHostScheduler`,
+:func:`pyramid_prefill_kept`).  Quest's (``QuestHostScheduler``) comes with
+Quest (ROADMAP §1 item 13): :func:`host_schedulable` answers for quest as
+the JAX package does, so its callers refuse it themselves.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List
 
 from scope_tpu_torch.config import CompressionConfig
 
@@ -52,11 +55,41 @@ def host_schedulable_layered(comp: CompressionConfig) -> bool:
                                          "jump", "pyramidinfer"))
 
 
+def pyramid_prefill_kept(comp: CompressionConfig, num_layers: int,
+                         prompt_len: int, prompt_bucket: int) -> List[int]:
+    """The PyramidKV prefill kept count of each layer, as
+    ``compress_prefill``'s pyramidkv branch keeps it.  prompt_bucket is the
+    padded prompt length S_pad (nothing is compressed when S_pad <= P)."""
+    P, w, beta = comp.max_capacity_prompt, comp.window_size, comp.beta
+    if prompt_bucket <= P or prompt_len < P:
+        return [prompt_len] * num_layers
+    q_len = prompt_len
+    min_num = (P - w) // beta
+    max_num = (P - w) * 2 - min_num
+    over = max_num >= q_len - w
+    max_num_d = (q_len - w) if over else max_num
+    lo = ((P - w) * 2 - max_num_d) if over else min_num
+    steps = (max_num_d - lo) // num_layers
+    mid = q_len < (P - w) * 2
+    kept = []
+    for l in range(num_layers):
+        n_keep = P if mid else max_num_d - l * steps
+        kept.append(max(0, min(n_keep, q_len - w)) + w)
+    return kept
+
+
 @dataclass
 class StepPlan:
     fire: bool
     n_keep: int = 0          # tokens kept from the scored region
     w_t: int = 0             # current decode window budget
+
+
+@dataclass
+class LayeredStepPlan:
+    fire_any: bool
+    fire: List[bool]         # [L]
+    n_keep: List[int]        # [L]
 
 
 class HostScheduler:
@@ -172,3 +205,114 @@ class HostScheduler:
         for _ in range(n):
             if self.plan_step().fire:
                 raise RuntimeError("advance_hot crossed a fire step")
+
+
+class LayeredHostScheduler:
+    """Per-layer host mirror for PyramidKV's layer-decayed budgets.
+
+    Prefill keeps a different count per layer, so each layer's cache
+    length, and so its fire step, differs.  The counters stay scalar
+    (reference class attributes): one increment per layer call, as
+    ``schedulers.schedule_decision`` makes them.  ``capacity`` is the
+    port's pyramidkv capacity (``EngineConfig.cache_capacity``)."""
+
+    def __init__(self, comp: CompressionConfig, num_layers: int,
+                 prompt_len: int, prompt_pad: int, keep_cap: int,
+                 capacity: int):
+        self.comp = comp
+        self.L = num_layers
+        self.pseg = comp.max_capacity_prompt
+        self.lengths = pyramid_prefill_kept(comp, num_layers, prompt_len,
+                                            prompt_pad)
+        self.keep_cap = min(keep_cap, capacity)
+        self.capacity = capacity
+        self.step_counter = 0
+        self.jump_step = 0
+        self.jump_layer = 0
+
+    def plan_step(self) -> LayeredStepPlan:
+        """Advance one decode step; each layer's gate sees its appended
+        length."""
+        comp = self.comp
+        m = comp.decoding_metric
+        W = comp.decoding_window_size
+        r = comp.decoding_recent_size
+        P = comp.max_capacity_prompt
+        thresh = comp.delta * self.L
+        fire = [False] * self.L
+        n_keep = [0] * self.L
+        for l in range(self.L):
+            self.lengths[l] += 1
+            if m == "none":
+                continue
+            if m == "pyramidinfer":
+                # Decode-phase pyramid budgets, rewritten from slot 0;
+                # mirrors schedule_decision's pyramidinfer arm.
+                if self.lengths[l] < self.pseg + W:
+                    continue
+                min_num = (P + W - r) // 2
+                max_num = (P + W - r) * 2 - min_num
+                steps = (max_num - min_num) // self.L
+                mid = self.lengths[l] < (P - r) * 2 + W
+                nk = (P + W - r) if mid else (max_num - l * steps + W)
+                nk = max(0, min(nk, self.lengths[l] - r, self.keep_cap,
+                                self.capacity - r))
+                n_keep[l] = nk
+                fire[l] = True
+                self.lengths[l] = nk + r
+                continue
+            if m == "fixed":
+                w_t = W
+                f = self.lengths[l] >= self.pseg + W
+            else:
+                w_t = r + self.step_counter // thresh
+                self.step_counter += 1
+                gate = self.lengths[l] >= self.pseg + w_t
+                if m == "linear":
+                    f = gate
+                else:            # jump: the wave machinery per layer call
+                    counting = gate and self.jump_step < thresh
+                    wave = gate and self.jump_step >= thresh
+                    if counting:
+                        self.jump_step += 1
+                    if wave:
+                        self.jump_layer += 1
+                    if self.jump_layer >= self.L:
+                        self.jump_step = 0
+                        self.jump_layer = 0
+                    f = gate and wave
+            if f:
+                nk = max(0, min(w_t - r,
+                                max(self.lengths[l] - r - self.pseg, 0)))
+                nk = min(nk, self.keep_cap, self.capacity - r - self.pseg)
+                n_keep[l] = nk
+                fire[l] = True
+                self.lengths[l] = self.pseg + nk + r
+        return LayeredStepPlan(fire_any=any(fire), fire=fire, n_keep=n_keep)
+
+    # -- chunk planning (see HostScheduler) -----------------------------
+    def _snapshot(self):
+        return (list(self.lengths), self.step_counter, self.jump_step,
+                self.jump_layer)
+
+    def _restore(self, snap):
+        lengths, self.step_counter, self.jump_step, self.jump_layer = snap
+        self.lengths = list(lengths)
+
+    def hot_run_length(self, max_n: int) -> int:
+        snap = self._snapshot()
+        n = 0
+        while n < max_n and not self.plan_step().fire_any:
+            n += 1
+        self._restore(snap)
+        return n
+
+    def advance_hot(self, n: int):
+        for _ in range(n):
+            if self.plan_step().fire_any:
+                raise RuntimeError("advance_hot crossed a fire step")
+
+    @property
+    def length(self) -> int:
+        """The longest layer's length (the hot step's length bucket)."""
+        return max(self.lengths)

@@ -1,12 +1,14 @@
 """SCOPE decode-phase budget schedulers over the static slotted cache.
 
-Ported: the fixed ("slide"), linear ("adaptive") and jump
-("discontinuous") schedulers and the h2o metric, which share
-:func:`schedule_decision`.  The reference's cross-layer class-attribute
-counters become an explicit :class:`SchedState` threaded through the layer
-loop; each layer call does the same counter arithmetic as one reference
-call, so the div-by-(delta * num_layers) schedule is the JAX package's
-exactly.  The slm and pyramidinfer metrics come with their methods.
+The fixed ("slide"), linear ("adaptive") and jump ("discontinuous")
+schedulers and the method-specific h2o, slm (positional) and pyramidinfer
+metrics share :func:`schedule_decision`.  The reference's cross-layer
+class-attribute counters become an explicit :class:`SchedState` threaded
+through the layer loop; each layer call does the same counter arithmetic as
+one reference call, so the div-by-(delta * num_layers) schedule is the JAX
+package's exactly.  With ``SchedState.init(batch=B)`` every batch row runs
+its own counters (its own linear / jump schedule), which the serving
+engine's device-cond path needs.
 
 Two ways to apply a decision:
 - cond mode (``llama.decode_step`` default): :func:`block_rewrite` asks
@@ -30,26 +32,37 @@ from scope_tpu_torch.compression.policies import topk_indices
 from scope_tpu_torch.config import CompressionConfig
 from scope_tpu_torch.ops.attention import NEG_INF
 
-_NOT_PORTED = ("slm", "pyramidinfer")
-
 
 @dataclass
 class SchedState:
     """Cross-layer scheduler counters (reference class attributes), as
-    int32 scalar tensors: one stream, gates coupled across batch rows."""
+    int32 tensors: scalars for one stream whose gates couple all batch rows,
+    or [B] with ``init(batch=B)``, each row an independent request stream
+    with its own linear / jump schedule."""
 
     step: torch.Tensor        # current_decoding_step (per layer call)
     jump_step: torch.Tensor
     jump_layer: torch.Tensor
 
     @staticmethod
-    def init(device=None) -> "SchedState":
+    def init(device=None, batch: int = 0) -> "SchedState":
         def z():
-            return torch.zeros((), dtype=torch.int32, device=device)
+            return torch.zeros((batch,) if batch else (), dtype=torch.int32,
+                               device=device)
         return SchedState(step=z(), jump_step=z(), jump_layer=z())
 
     def replace(self, **kw) -> "SchedState":
         return dataclasses.replace(self, **kw)
+
+    def reset_row(self, row: int) -> "SchedState":
+        """Zero one row's counters (a new request admitted to that slot)."""
+        def zeroed(x):
+            x = x.clone()
+            x[row] = 0
+            return x
+        return SchedState(step=zeroed(self.step),
+                          jump_step=zeroed(self.jump_step),
+                          jump_layer=zeroed(self.jump_layer))
 
 
 class DecodeCaps(NamedTuple):
@@ -85,39 +98,41 @@ def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
 
     length [B] includes the appended token.  Returns (row_gate [B] bool,
     n_keep [B] int32, pseg [B] int32, positional, state); positional is
-    False for every ported metric (True only for slm)."""
+    True only for the slm metric, which keeps the lowest slots."""
     metric = comp.decoding_metric
-    if metric in _NOT_PORTED:
-        raise NotImplementedError(
-            f"decoding metric {metric!r} comes with its method (ROADMAP §1 "
-            f"item 13)")
     W = comp.decoding_window_size
     r = comp.decoding_recent_size
+    P = comp.max_capacity_prompt
     B = length.shape[0]
     dev = length.device
     i32 = torch.int32
     if comp.method == "allkv":
-        pseg = prompt_len.to(i32)
+        pseg0 = prompt_len.to(i32)
+    elif comp.method == "headwise":
+        pseg0 = torch.full((B,), comp.headwise_max_budget, dtype=i32,
+                           device=dev)
     else:
-        pseg = torch.full((B,), comp.max_capacity_prompt, dtype=i32,
-                          device=dev)
+        pseg0 = torch.full((B,), P, dtype=i32, device=dev)
     thresh = comp.delta * num_layers
+    pseg = pseg0
+    positional = False
 
     if metric == "none":
         return (torch.zeros((B,), dtype=torch.bool, device=dev),
                 torch.zeros((B,), dtype=i32, device=dev), pseg, False,
                 state)
     if metric == "fixed":
-        row_gate = length >= pseg + W
+        row_gate = length >= pseg0 + W
         n_keep = torch.full((B,), W - r, dtype=i32, device=dev)
     elif metric in ("linear", "jump"):
         w_t = r + torch.div(state.step, thresh, rounding_mode="floor")
         state = state.replace(step=state.step + 1)
-        row_gate = length >= pseg + w_t
+        row_gate = length >= pseg0 + w_t
         n_keep = (w_t - r).to(i32).expand(B)
         if metric == "jump":
-            # Scalar counters: one stream; the gate couples all rows.
-            gate = row_gate.any()
+            # Scalar counters: one stream, the gate couples all rows.
+            # Per-row counters: each row runs its own jump wave.
+            gate = row_gate.any() if state.jump_step.dim() == 0 else row_gate
             counting = gate & (state.jump_step < thresh)
             wave = gate & (state.jump_step >= thresh)
             js = state.jump_step + counting.to(i32)
@@ -127,11 +142,23 @@ def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
             state = state.replace(jump_step=torch.where(finished, zero, js),
                                   jump_layer=torch.where(finished, zero, jl))
             row_gate = row_gate & wave
-    elif metric == "h2o":
-        # H2O's own decode metric: gate like fixed, re-rank the whole
-        # cache from slot 0 keeping P+W-r by score, plus the recent r.
-        row_gate = length >= pseg + W
-        n_keep = pseg + W - r
+    elif metric in ("h2o", "slm"):
+        # Method-specific global metrics: gate like fixed, re-rank the
+        # whole cache from slot 0 keeping P+W-r (by score for h2o, the
+        # lowest slots for slm), plus the recent r.
+        row_gate = length >= pseg0 + W
+        n_keep = pseg0 + W - r
+        pseg = torch.zeros((B,), dtype=i32, device=dev)
+        positional = metric == "slm"
+    elif metric == "pyramidinfer":
+        # Decode-phase pyramid budgets over the whole cache.
+        min_num = (P + W - r) // 2
+        max_num = (P + W - r) * 2 - min_num
+        steps = (max_num - min_num) // num_layers
+        budget_l = max_num - layer_idx * steps
+        row_gate = length >= pseg0 + W
+        mid = length < (P - r) * 2 + W
+        n_keep = torch.where(mid, P + W - r, budget_l + W).to(i32)
         pseg = torch.zeros((B,), dtype=i32, device=dev)
     else:
         raise ValueError(f"unknown decoding metric {metric!r}")
@@ -141,7 +168,7 @@ def schedule_decision(comp: CompressionConfig, caps: DecodeCaps,
     n_keep = torch.minimum(n_keep.clamp(min=0), region_len)
     n_keep = n_keep.clamp(max=keep_cap)
     n_keep = torch.minimum(n_keep, caps.capacity - r - pseg)
-    return row_gate, n_keep.to(i32), pseg, False, state
+    return row_gate, n_keep.to(i32), pseg, positional, state
 
 
 def block_width(comp: CompressionConfig, caps: DecodeCaps) -> int:
@@ -153,8 +180,8 @@ def force_pseg(comp: CompressionConfig, batch: int,
                prompt_len: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """(pseg [B] int32, positional) for a host-planned force rewrite:
     method-specific metrics re-rank from slot 0 (slm positionally);
-    allkv/fullkv protect the recorded prompt; everything else protects
-    max_capacity_prompt."""
+    allkv/fullkv protect the recorded prompt, headwise its reserved
+    segment, everything else max_capacity_prompt."""
     positional = comp.decoding_metric == "slm"
     dev = prompt_len.device
     if comp.decoding_metric in ("h2o", "slm", "pyramidinfer"):
@@ -162,8 +189,10 @@ def force_pseg(comp: CompressionConfig, batch: int,
             positional
     if comp.method in ("allkv", "fullkv"):
         return prompt_len.to(torch.int32), positional
-    return torch.full((batch,), comp.max_capacity_prompt, dtype=torch.int32,
-                      device=dev), positional
+    pseg = (comp.headwise_max_budget if comp.method == "headwise"
+            else comp.max_capacity_prompt)
+    return torch.full((batch,), pseg, dtype=torch.int32, device=dev), \
+        positional
 
 
 def block_map(comp: CompressionConfig, caps: DecodeCaps,
@@ -228,7 +257,7 @@ def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
                   probs: torch.Tensor, ck_l: torch.Tensor,
                   cv_l: torch.Tensor, length: torch.Tensor,
                   pseg: torch.Tensor, n_keep: torch.Tensor,
-                  row_gate: torch.Tensor
+                  row_gate: torch.Tensor, positional: bool = False
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
                              torch.Tensor]:
     """The block rewrite of the JAX package's ``block_rewrite_cond``.
@@ -240,5 +269,5 @@ def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
     if not bool(row_gate.any()):
         return None, None, length
     return gather_block(comp, caps, probs, ck_l, cv_l, length, pseg, n_keep,
-                        row_gate)
+                        row_gate, positional)
 

@@ -3,8 +3,9 @@
 A copy of the JAX package's ``scope_tpu/config.py`` (the two packages share
 no code): ``ModelSpec`` and ``CompressionConfig`` keep the same fields and
 validation, ``EngineConfig`` keeps the shape, KV-dtype and chunk fields and the
-capacity derivation (the TPU staging ring, lazy eviction and
-``uniform_lengths`` are left out on purpose).
+capacity derivation, except that a pyramidkv cache holds its deep branch's
+prefill (:func:`pyramid_prefill_max`; the TPU staging ring, lazy eviction
+and ``uniform_lengths`` are left out on purpose).
 """
 
 from __future__ import annotations
@@ -138,6 +139,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def pyramid_prefill_max(comp: CompressionConfig) -> int:
+    """The most prefill tokens any pyramidkv layer keeps, whatever the
+    prompt.  The mid branch (prompts below 2(P - w)) keeps at most P + w;
+    the deep branch keeps budget_l + w in layer l, and layer 0's budget
+    reaches max_num = 2(P - w) - (P - w) // beta."""
+    P, w = comp.max_capacity_prompt, comp.window_size
+    max_num = (P - w) * 2 - (P - w) // comp.beta
+    return max(P, max_num) + w
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """Engine-level shapes derived from model + compression config.
@@ -175,7 +186,8 @@ class EngineConfig:
         fixed: steady-state P+W, +1 for the append-before-compress step.
         linear/jump: W grows to ~r + max_new/delta; jump additionally
         overshoots by up to delta tokens between waves.  The chunk slack
-        term is the JAX package's, so capacities match it.
+        term is the JAX package's, so capacities match it for every method
+        but pyramidkv (see :func:`pyramid_prefill_max`).
         """
         P = comp.max_capacity_prompt
         W = comp.decoding_window_size
@@ -189,6 +201,10 @@ class EngineConfig:
             base = self.max_prompt_len
         elif comp.method == "headwise":
             base = comp.headwise_max_budget
+        elif comp.method == "pyramidkv":
+            # The JAX package sizes this min(P, max_prompt_len), which the
+            # deep branch's shallow layers overrun (ROADMAP §3).
+            base = min(pyramid_prefill_max(comp), self.max_prompt_len)
         else:
             base = min(P, self.max_prompt_len)
         if comp.decoding_metric == "none":

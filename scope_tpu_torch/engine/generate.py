@@ -7,7 +7,8 @@
   timestamps (TTFT / TPOT), for one request at a time.  Like the JAX
   package's, it takes the host-scheduled decoder (``engine/host_loop.py``:
   no per-layer host sync) for every method and metric whose gates the host
-  can mirror, and cond mode otherwise.
+  can mirror, per layer for pyramidkv, and cond mode otherwise (headwise,
+  allkv with the h2o metric).
 
 The two decode paths give identical tokens (tests/test_torch_host_sched.py).
 :func:`sample_logits` and :func:`sample_logits_rowwise` are the sampling
@@ -22,7 +23,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from scope_tpu_torch.compression.host_sched import host_schedulable
+from scope_tpu_torch.compression.host_sched import (host_schedulable,
+                                                    host_schedulable_layered)
 from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
 from scope_tpu_torch.device import resolve_device
 from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
@@ -183,8 +185,10 @@ class StreamingGenerator:
         # Host-orchestrated scheduling where the gates are deterministic:
         # the hot step then carries no compression logic and no host sync.
         # None: the path this generator decodes on is cond mode.
-        self.host_decoder = (HostScheduledDecoder(spec, comp, ecfg)
-                             if host_schedulable(comp) else None)
+        self.host_decoder = (
+            HostScheduledDecoder(spec, comp, ecfg)
+            if host_schedulable(comp) or host_schedulable_layered(comp)
+            else None)
 
     @torch.inference_mode()
     def generate(self, tokens: np.ndarray, true_len: np.ndarray,
@@ -202,7 +206,8 @@ class StreamingGenerator:
         out = [tok]
         done = tok in self.eos_ids
         s = 0
-        sched = (self.host_decoder.new_scheduler(int(true_len[0]))
+        sched = (self.host_decoder.new_scheduler(int(true_len[0]),
+                                                 prompt_pad=tokens.shape[1])
                  if self.host_decoder is not None else None)
         while not done and len(out) < max_new:
             tok_arr = torch.full((1,), tok, dtype=torch.int32,

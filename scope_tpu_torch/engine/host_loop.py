@@ -6,7 +6,10 @@ The host mirrors the (deterministic) SCOPE gates and counters
 probabilities, no host sync) or the force step (an unconditional rewrite
 keeping the host's count).  Fire-free stretches may run as one
 ``decode_steps`` chunk.  Token-identical to cond mode
-(tests/test_torch_host_sched.py).  The serving engine
+(tests/test_torch_host_sched.py, tests/test_torch_layered_host.py).
+PyramidKV's layers keep different prefill counts, so its mirror
+(``LayeredHostScheduler``) tracks every layer's length and a force step
+gets [L, B] gates: only the layers that fire rewrite.  The serving engine
 (``engine/serving.py``) drives the same three programs (:meth:`step_off`,
 :meth:`step_force` with per-row gates, :meth:`step_chunk`) from per-slot
 mirrors.  The JAX package's lazy eviction and its host-run compaction are
@@ -19,13 +22,14 @@ here a "program" is the call with that ``attn_cap`` / ``n_steps``.
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from scope_tpu_torch.cache import KVCache
 from scope_tpu_torch.compression.host_sched import (HostScheduler,
+                                                    LayeredHostScheduler,
                                                     host_schedulable,
                                                     host_schedulable_layered)
 from scope_tpu_torch.compression.schedulers import SchedState
@@ -40,15 +44,12 @@ class HostScheduledDecoder:
 
     def __init__(self, spec: ModelSpec, comp: CompressionConfig,
                  ecfg: EngineConfig):
-        layered = host_schedulable_layered(comp)
-        if not (host_schedulable(comp) or layered):
+        llama._check_supported(spec, comp)     # quest among them
+        self.layered = host_schedulable_layered(comp)
+        if not (host_schedulable(comp) or self.layered):
             raise ValueError(
                 f"{comp.method}+{comp.decoding_metric} needs the device "
                 f"scheduler; use decode_step(compress_mode='cond')")
-        if layered or comp.method in ("quest", "snapkv", "streamingllm"):
-            raise NotImplementedError(
-                f"host scheduling of {comp.method} comes with the method "
-                f"(ROADMAP §1 item 13)")
         self.spec, self.comp, self.ecfg = spec, comp, ecfg
         st = llama.derive_statics(spec, comp, ecfg)
         self.capacity = st.capacity
@@ -71,8 +72,19 @@ class HostScheduledDecoder:
                 return b
         return self.capacity
 
-    def new_scheduler(self, prompt_len: int) -> HostScheduler:
+    def new_scheduler(self, prompt_len: int,
+                      prompt_pad: Optional[int] = None
+                      ) -> Union[HostScheduler, LayeredHostScheduler]:
+        """A mirror for one request of ``prompt_len`` tokens, padded to
+        ``prompt_pad`` (default: its bucket), which decides whether
+        pyramidkv's prefill compressed."""
         comp = self.comp
+        if self.layered:
+            pad = (prompt_pad if prompt_pad is not None
+                   else self.ecfg.bucket_for(prompt_len))
+            return LayeredHostScheduler(comp, self.spec.num_layers,
+                                        prompt_len, pad, self._keep_cap,
+                                        self.capacity)
         if comp.method in ("fullkv", "allkv"):
             kept = prompt_len
         else:
@@ -93,8 +105,9 @@ class HostScheduledDecoder:
                    cache: KVCache, state: SchedState, n_keep, row_gate=None
                    ) -> Tuple[torch.Tensor, KVCache, SchedState]:
         """The force step over the whole capacity: the rows of ``row_gate``
-        [B] (all when None) rewrite keeping ``n_keep`` [B] tokens.  Both may
-        be host arrays: they go to the device without a host sync."""
+        (all when None) rewrite keeping ``n_keep`` tokens, both [B] or, per
+        layer, [L, B].  Both may be host arrays: they go to the device
+        without a host sync."""
         dev = tok.device
         n_keep = _to_device(n_keep, torch.int32, dev)
         if row_gate is not None:
@@ -113,21 +126,28 @@ class HostScheduledDecoder:
                                   tok, vpos, cache, state, n_steps=n,
                                   attn_cap=attn_cap)
 
-    def step(self, sched: HostScheduler, params, tok: torch.Tensor,
-             vpos: torch.Tensor, cache: KVCache, state: SchedState
+    def step(self, sched, params, tok: torch.Tensor, vpos: torch.Tensor,
+             cache: KVCache, state: SchedState
              ) -> Tuple[torch.Tensor, KVCache, SchedState]:
-        """One decode step: the force step where the mirror fires, else the
-        hot step at the bucket of the cache length.  Returns (logits
-        [B, V], cache, state)."""
+        """One decode step: the force step where the mirror fires (on the
+        firing layers only, for a layered mirror), else the hot step at the
+        bucket of the longest layer.  Returns (logits [B, V], cache,
+        state)."""
         plan = sched.plan_step()
-        if plan.fire:
-            n_keep = torch.full((tok.shape[0],), plan.n_keep,
-                                dtype=torch.int32, device=tok.device)
-            return self.step_force(params, tok, vpos, cache, state, n_keep)
+        B = tok.shape[0]
+        if self.layered and plan.fire_any:
+            gate = np.repeat(np.asarray(plan.fire, bool)[:, None], B, axis=1)
+            n_keep = np.repeat(np.asarray(plan.n_keep, np.int32)[:, None], B,
+                               axis=1)
+            return self.step_force(params, tok, vpos, cache, state, n_keep,
+                                   gate)
+        if not self.layered and plan.fire:
+            return self.step_force(params, tok, vpos, cache, state,
+                                   np.full((B,), plan.n_keep, np.int32))
         return self.step_off(params, tok, vpos, cache, state,
                              self.bucket_for(sched.length))
 
-    def step_auto(self, sched: HostScheduler, params, tok: torch.Tensor,
+    def step_auto(self, sched, params, tok: torch.Tensor,
                   vpos: torch.Tensor, cache: KVCache, state: SchedState
                   ) -> Tuple[torch.Tensor, KVCache, SchedState]:
         """Advance 1..max(chunk sizes) decode steps, running a fire-free
@@ -154,9 +174,13 @@ class HostScheduledDecoder:
 
 def _to_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     """A host array or a tensor as ``dtype`` on ``dev``; a host array is
-    copied without waiting (non_blocking), so no host sync is made."""
+    staged in pinned memory and copied without waiting (non_blocking), so
+    no host sync is made (a copy from pageable memory may wait for the
+    stream)."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(dtype=dtype)
+        if dev.type == "cuda":
+            x = x.pin_memory()
     return x.to(dtype=dtype).to(dev, non_blocking=True)
 
 
@@ -171,8 +195,9 @@ def host_generate(spec: ModelSpec, comp: CompressionConfig,
 
     Returns (tokens [B, n] int32, stats): ``ttft_s``, ``tpot_s`` (tokens
     of one chunk share its end time), and, for checking the mirror, its
-    final ``mirror_length`` beside the cache's per-layer ``cache_length``
-    after ``decode_steps`` steps (a last chunk may run past ``max_new``)."""
+    final per-layer ``mirror_lengths`` (and their largest,
+    ``mirror_length``) beside the cache's per-layer ``cache_length`` after
+    ``decode_steps`` steps (a last chunk may run past ``max_new``)."""
     if len(set(int(t) for t in true_len)) != 1:
         raise ValueError("host scheduling needs uniform prompt lengths")
     dev = resolve_device(device)
@@ -185,7 +210,8 @@ def host_generate(spec: ModelSpec, comp: CompressionConfig,
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [tok.cpu().numpy()]
     timestamps = [time.perf_counter()]
-    sched = dec.new_scheduler(int(true_len[0]))
+    sched = dec.new_scheduler(int(true_len[0]),
+                              prompt_pad=np.asarray(tokens).shape[1])
     eos = list(set(int(e) for e in eos_ids))
     done = np.isin(out[0], eos)
     s = 0
@@ -207,6 +233,8 @@ def host_generate(spec: ModelSpec, comp: CompressionConfig,
         "tpot_s": [timestamps[i] - (timestamps[i - 1] if i else t0)
                    for i in range(len(timestamps))],
         "mirror_length": sched.length,
+        "mirror_lengths": (list(sched.lengths) if dec.layered
+                           else [sched.length] * spec.num_layers),
         "cache_length": cache.length[:, 0].tolist(),
         "decode_steps": s,
     }

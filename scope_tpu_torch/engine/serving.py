@@ -8,14 +8,19 @@ in its bucket, through the two prefill kernels) and its cache row is
 written into the pool, and all slots decode together, one batched step per
 engine step.
 
-Compression: every slot has its own host mirror of the SCOPE gates
+Compression, two ways.  Where the host can mirror the gates
+(``host_sched.host_schedulable``: fullkv, allkv, h2o, snapkv, streamingllm
+and their method metrics), every slot has its own host mirror
 (``compression/host_sched.HostScheduler``), so each request fires on its
 own length and counters, as it would alone.  A step where some slot fires
 is a force step whose per-row gate holds exactly the firing slots; any
 other step is the hot step at the length bucket of the longest live slot
-(or a multi-step chunk of them when every slot is fire-free).  Idle slots
-decode too; their tokens are dropped and their row is rewritten at the
-next admission.
+(or a multi-step chunk of them when every slot is fire-free).  Elsewhere
+(pyramidkv, whose lengths differ per layer, and headwise) every step runs
+``decode_step``'s cond mode over the pool, the device's gates with per-row
+``SchedState`` counters (linear / jump), reset at each admission.  Idle
+slots decode too; their tokens are dropped and their row is rewritten at
+the next admission.
 
 Token fetches are pipelined: each dispatch starts a non-blocking copy of
 its tokens to pinned host memory and records an event, and the host reads
@@ -23,13 +28,11 @@ a dispatch only after up to ``pipeline_depth`` newer ones are queued, so
 the read overlaps the device's work.  EOS and budget detection lag by as
 many dispatches; results are identical at every depth.
 
-A port of the JAX package's ``engine/serving.py`` for the host-schedulable
-configurations.  Not ported yet, and refused with the ROADMAP item that
-brings them: chunked admission (``prefill_chunk``) and the methods other
-than fullkv / allkv / h2o (item 13; they also bring the per-row device
-counters that configurations the host cannot mirror need), and meshes
-(item 15).  The staging ring and lazy eviction are left out on purpose
-(items 9 and 11).
+A port of the JAX package's ``engine/serving.py``.  Not ported yet, and
+refused with the ROADMAP item that brings them: chunked admission
+(``prefill_chunk``) and Quest (item 13), the sliding window and qkv bias
+(item 13, Mistral and Qwen2) and meshes (item 15).  The staging ring and
+lazy eviction are left out on purpose (items 9 and 11).
 """
 
 from __future__ import annotations
@@ -93,20 +96,13 @@ class ServingEngine:
         if prefill_chunk is not None:
             raise NotImplementedError(
                 "chunked admission (prefill_chunk) comes with "
-                "models/chunked_prefill.py (ROADMAP §1 item 13)")
+                "models/chunked_prefill.py (ROADMAP §1 item 13, chunked "
+                "prefill)")
         if mesh is not None:
             raise NotImplementedError(
                 "distributed serving comes with parallel/ (ROADMAP §1 item "
                 "15)")
-        if comp.method not in ("fullkv", "allkv", "h2o"):
-            raise NotImplementedError(
-                f"serving {comp.method} comes with the method (ROADMAP §1 "
-                f"item 13)")
-        if not host_schedulable(comp):
-            raise NotImplementedError(
-                f"{comp.method}+{comp.decoding_metric} needs per-row device "
-                f"counters (SchedState per row), which come with ROADMAP §1 "
-                f"item 13")
+        llama._check_supported(spec, comp)
         self.spec, self.comp, self.ecfg = spec, comp, ecfg
         self.params = params
         self.device = resolve_device(device)
@@ -116,15 +112,26 @@ class ServingEngine:
             max_slots,
             token_budget or max_slots * (ecfg.max_prompt_len
                                          + ecfg.max_new_tokens))
-        self._hdec = HostScheduledDecoder(spec, comp, ecfg)
+        # Host mode where the gates can be mirrored per slot; otherwise the
+        # device-cond path (_cond_decode).
+        self._host_mode = host_schedulable(comp)
+        self._hdec = (HostScheduledDecoder(spec, comp, ecfg)
+                      if self._host_mode else None)
         self._slot_scheds: List[Optional[HostScheduler]] = [None] * max_slots
         st = llama.derive_statics(spec, comp, ecfg)
         self.cache: KVCache = init_cache(
             spec.num_layers, max_slots, st.cache_heads, st.capacity,
             spec.head_dim, llama._dtype(ecfg.dtype), self.device,
-            kv_dtype=ecfg.kv_dtype)
-        # Host-scheduled decode reads no device counters.
-        self.state = SchedState.init(self.device)
+            kv_dtype=ecfg.kv_dtype,
+            # Headwise's reserved prefill segment: the pool carries the
+            # gap each admission's prefill cache has.
+            prefill_gap=(comp.headwise_max_budget
+                         if comp.method == "headwise" else 0))
+        # Per-slot counters: each slot an independent linear / jump stream
+        # (read by the device-cond path; host-scheduled decode reads none).
+        self._per_row_state = comp.decoding_metric in ("linear", "jump")
+        self.state = SchedState.init(
+            self.device, batch=max_slots if self._per_row_state else 0)
         self.slots = [_SlotState() for _ in range(max_slots)]
         self.vpos = np.zeros(max_slots, np.int64)
         self.pipeline_depth = max(0, int(pipeline_depth))
@@ -213,7 +220,10 @@ class ServingEngine:
         c.prompt_len[slot] = prompt_len
         self._tok_dev[slot] = tok0
         self.vpos[slot] = prompt_len
-        self._slot_scheds[slot] = self._hdec.new_scheduler(prompt_len)
+        if self._per_row_state:
+            self.state = self.state.reset_row(slot)
+        if self._host_mode:
+            self._slot_scheds[slot] = self._hdec.new_scheduler(prompt_len)
 
     def _admit(self) -> bool:
         admitted = False
@@ -296,14 +306,26 @@ class ServingEngine:
         return self._hdec.step_off(self.params, tok, vpos, self.cache,
                                    self.state, self._hdec.bucket_for(needed))
 
+    def _cond_decode(self, tok: torch.Tensor, vpos: torch.Tensor):
+        """One step of ``decode_step``'s cond mode over the pool: the
+        device's gates, per-row counters.  Deciding whether a layer fires
+        reads the device once per layer (``schedulers.block_rewrite``), as
+        ``generate`` does; only configurations the host cannot mirror come
+        here, so the dispatch's no-sync property holds in host mode only."""
+        return llama.decode_step(self.spec, self.comp, self.ecfg,
+                                 self.params, tok, vpos, self.cache,
+                                 self.state)
+
     def _plan_chunk(self) -> int:
         """The largest chunk size n such that every active slot is fire-free
         for the next n steps and none reaches its budget inside them; 0 =
-        one step.  No chunks while admissions wait (a chunk would delay
-        them) or while a row samples (chunks decode greedily)."""
+        one step.  No chunks on the device-cond path, while admissions wait
+        (a chunk would delay them) or while a row samples (chunks decode
+        greedily)."""
         sizes = sorted((n for n in self.ecfg.decode_chunk_sizes if n > 1),
                        reverse=True)
-        if not sizes or self.sched.queued > 0 or np.any(self._samp_t > 0.0):
+        if (not self._host_mode or not sizes or self.sched.queued > 0
+                or np.any(self._samp_t > 0.0)):
             return 0
         live = [i for i, s in enumerate(self.slots) if s.active]
         run = min(self._slot_scheds[i].hot_run_length(sizes[0])
@@ -331,7 +353,9 @@ class ServingEngine:
                 self._slot_scheds[i].advance_hot(n)
         else:
             n = 1
-            logits, self.cache, self.state = self._host_decode(tok, vpos)
+            decode = self._host_decode if self._host_mode else \
+                self._cond_decode
+            logits, self.cache, self.state = decode(tok, vpos)
             if np.any(self._samp_t > 0.0):
                 toks_dev = self._sample(
                     logits, self._samp_seed, self.vpos + 1, self._samp_t,

@@ -48,7 +48,7 @@ def params_from_jax(params_np: Mapping[str, Any], device="cuda",
     if unknown:
         raise NotImplementedError(
             f"parameters {sorted(unknown)} are not ported yet (qkv bias: "
-            f"ROADMAP §1 item 13)")
+            f"ROADMAP §1 item 13, Qwen2)")
     out = {name: _tensor(name, params_np[name], dev, dtype)
            for name in _TOP if name in params_np}
     out["layers"] = {name: _tensor(name, arr, dev, dtype)

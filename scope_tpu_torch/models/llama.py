@@ -1,11 +1,11 @@
 """Llama-family decoder in PyTorch with SCOPE compression integrated.
 
-The port of the JAX package's ``models/llama.py`` main path: ``prefill``
-(every layer: fused qkv + RoPE, GQA expansion, prefill attention with H2O
+The port of the JAX package's ``models/llama.py``: ``prefill`` (every
+layer: fused qkv + RoPE, GQA expansion, prefill attention with eviction
 score capture through the Hopper kernels, output projection + MLP, then
-prefill compression), ``decode_step`` (per layer: append the token, attend,
-then compress as ``compress_mode`` says) and ``decode_steps`` (n hot steps
-with the token kept on the device).
+prefill compression by any method but Quest), ``decode_step`` (per layer:
+append the token, attend, then compress as ``compress_mode`` says) and
+``decode_steps`` (n hot steps with the token kept on the device).
 
 Semantics kept from the reference forward:
 - RoPE is applied before caching; evicted caches keep original phases.
@@ -49,7 +49,6 @@ from scope_tpu_torch.ops.common import (apply_rope, mlp, repeat_kv, rms_norm,
                                         rope_cos_sin, rope_inv_freq, wdot)
 
 Params = Dict[str, Any]
-_PORTED_METHODS = ("fullkv", "allkv", "h2o")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -60,14 +59,18 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(spec: ModelSpec, comp: CompressionConfig) -> None:
-    if spec.sliding_window is not None or spec.attention_bias:
+    """Refuse what the port does not run yet, naming the ROADMAP item that
+    brings it."""
+    if (spec.sliding_window is not None or spec.attention_bias
+            or comp.mistral_window_parity):
         raise NotImplementedError(
-            f"{spec.arch} features (sliding window, qkv bias) are not "
-            f"ported yet (ROADMAP §1 item 13)")
-    if comp.method not in _PORTED_METHODS:
+            f"{spec.arch} features (sliding window, mistral_window_parity, "
+            f"qkv bias) are not ported yet (ROADMAP §1 item 13, Mistral and "
+            f"Qwen2)")
+    if comp.method == "quest":
         raise NotImplementedError(
-            f"prefill method {comp.method!r} is not ported yet (ROADMAP §1 "
-            f"item 13)")
+            "prefill method 'quest' is not ported yet (ROADMAP §1 item 13, "
+            "Quest)")
 
 
 # --------------------------------------------------------------------------
@@ -217,15 +220,17 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     dtype = _dtype(ecfg.dtype)
     dev = params["embed"].device
     tl = true_len.to(device=dev, dtype=torch.int32)
-    need_all = comp.method == "h2o"
+    need_all = comp.method in ("h2o", "pyramidkv")
+    need_win = comp.method == "snapkv"
 
     inv_freq = rope_inv_freq(D, spec.rope_theta, spec.rope_scaling, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
     cos, sin = rope_cos_sin(positions, inv_freq)
 
     x = params["embed"][tokens.to(dev).long()].to(dtype)
+    gap = comp.headwise_max_budget if comp.method == "headwise" else 0
     cache = init_cache(L, B, st.cache_heads, st.capacity, D, dtype, dev,
-                       kv_dtype=ecfg.kv_dtype)
+                       kv_dtype=ecfg.kv_dtype, prefill_gap=gap)
     cache.prompt_len = tl.clone()
     for l in range(L):
         p = _layer(params, l)
@@ -234,14 +239,16 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         v_full = repeat_kv(v, G)
         out, scores = prefill_attention(
             q, k_full, v_full, tl, window_size=comp.window_size,
-            need_colsum_all=need_all, sliding_window=spec.sliding_window)
+            need_colsum_all=need_all, need_colsum_window=need_win,
+            sliding_window=spec.sliding_window)
         x = layer_post(spec, p, x, out)
         if comp.evict_per_qhead:
             ck, cv, sc = k_full, v_full, scores
         else:
             ck, cv = k, v
             sc = scores._replace(
-                colsum_all=_group_scores(scores.colsum_all, G))
+                colsum_all=_group_scores(scores.colsum_all, G),
+                colsum_window=_group_scores(scores.colsum_window, G))
         res = compress_prefill(comp, l, L, ck, cv, q, sc, tl, st.capacity)
         # int8 / int4: calibrate and quantize this layer before it is
         # stored, so no full-precision cache of all layers is ever held.
@@ -334,8 +341,10 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
       place, attend over the first ``attn_cap`` slots (a host-chosen
       length bucket; None = all).  No host sync.
     - "force": the rewrite at ``schedulers.force_pseg`` keeping
-      ``force_n_keep`` [B] tokens, on the rows of ``force_row_gate`` [B]
-      (every row when None); the device is not asked whether to fire.
+      ``force_n_keep`` tokens on the rows of ``force_row_gate`` (every row
+      when None): both [B] (every layer alike) or [L, B] (per-layer fire
+      masks, pyramidkv's layered mirror); the device is not asked whether
+      to fire.
     "off" and "force" are the host-scheduled decode of
     ``engine/host_loop.py`` and ``engine/serving.py``.
 
@@ -372,10 +381,10 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     need_probs = metric != "none" and compress_mode != "off"
     if compress_mode == "force" and need_probs:
         pseg, positional = force_pseg(comp, B, cache.prompt_len)
-        row_gate = (torch.ones((B,), dtype=torch.bool, device=dev)
-                    if force_row_gate is None
-                    else force_row_gate.to(device=dev, dtype=torch.bool))
-        n_keep = force_n_keep.to(device=dev, dtype=torch.int32)
+        gates = (torch.ones((B,), dtype=torch.bool, device=dev)
+                 if force_row_gate is None
+                 else force_row_gate.to(device=dev, dtype=torch.bool))
+        keeps = force_n_keep.to(device=dev, dtype=torch.int32)
     int4 = ecfg.kv_dtype == "int4"
     quantized = int4 or ecfg.kv_dtype == "int8"
 
@@ -418,6 +427,8 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
                                        cache.v_off[l] if int4 else None)
 
         if need_probs and compress_mode == "force":
+            row_gate = gates[l] if gates.dim() == 2 else gates
+            n_keep = keeps[l] if keeps.dim() == 2 else keeps
             kblk, vblk, new_len = gather_block(
                 comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
                 row_gate, positional)
@@ -425,11 +436,11 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
             _write_block(cache.v, l, pseg, vblk)
             cache.length[l] = new_len
         elif need_probs:                                 # cond
-            row_gate, n_keep, pseg, _, state = schedule_decision(
+            row_gate, n_keep, pseg, positional, state = schedule_decision(
                 comp, st.caps, state, length, cache.prompt_len, l, L)
             kblk, vblk, new_len = block_rewrite(
                 comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
-                row_gate)
+                row_gate, positional)
             if kblk is not None:
                 _write_block(cache.k, l, pseg, kblk)
                 _write_block(cache.v, l, pseg, vblk)

@@ -1,11 +1,12 @@
-"""Attention paths: prefill attention with fused H2O score capture, and
-masked decode attention over the static slotted cache.
+"""Attention paths: prefill attention with fused eviction-score capture,
+and masked decode attention over the static slotted cache.
 
 Prefill reaches the two hand-written Hopper kernels of
 :mod:`scope_tpu_torch.ops.flash_prefill` for CUDA tensors (their plain
-versions for CPU tensors).  Decode attention is plain torch ops, as it is
-XLA einsums in the JAX package: its probabilities double as the decode
-eviction scores.
+versions for CPU tensors).  SnapKV's observation-window scores
+(:func:`_window_colsum`), their pooling (:func:`pool_scores`) and decode
+attention are plain torch ops, as they are XLA ops in the JAX package;
+decode attention's probabilities double as the decode eviction scores.
 
 Score semantics follow the JAX package exactly, including the reference's
 quirk of applying a causal mask only to the trailing ``w x w`` block of the
@@ -18,6 +19,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from scope_tpu_torch.ops.flash_prefill import (NEG_INF, colsum_scores,
                                                flash_prefill)
@@ -27,34 +29,82 @@ from scope_tpu_torch.ops.quant import pv_einsum, qk_einsum
 class PrefillScores(NamedTuple):
     """Per-key accumulated eviction scores from the prefill pass."""
 
-    # Column sums of the full-query scoring softmax (H2O semantics).
-    # float32 [B, H, S].
+    # Column sums of the full-query scoring softmax (H2O / PyramidKV
+    # semantics).  float32 [B, H, S].
     colsum_all: Optional[torch.Tensor]
-    # SnapKV's observation-window column sums; not ported yet (None).
+    # Column sums over only the last-w query rows (SnapKV semantics).
+    # float32 [B, H, S].
     colsum_window: Optional[torch.Tensor]
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       true_len: torch.Tensor, *, window_size: int,
                       need_colsum_all: bool = False,
+                      need_colsum_window: bool = False,
                       sliding_window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, PrefillScores]:
     """Causal attention over the full (uncompressed) prompt + score capture.
 
     q, k, v: [B, H, S, D] (roped, GQA-expanded).  true_len: [B] int count of
     real (non-pad) tokens; prompts are right-padded to S.  CUDA tensors run
-    the ``flash_prefill`` and ``colsum_scores`` kernels; CPU tensors run
-    their plain versions.  Returns (out [B, H, S, D], PrefillScores).
+    the ``flash_prefill`` kernel (and ``colsum_scores`` when
+    ``need_colsum_all``); CPU tensors run their plain versions.  Returns
+    (out [B, H, S, D], PrefillScores).
     """
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, m2, l2 = flash_prefill(q, k, v, true_len, window_size=window_size,
                                 need_scores=need_colsum_all,
                                 sliding_window=sliding_window)
-    colsum_all = None
+    colsum_all = colsum_window = None
     if need_colsum_all:
         colsum_all = colsum_scores(q, k, true_len, m2, l2,
                                    window_size=window_size)
-    return out, PrefillScores(colsum_all=colsum_all, colsum_window=None)
+    if need_colsum_window:
+        colsum_window = _window_colsum(q, k, true_len, window_size,
+                                       1.0 / math.sqrt(q.shape[-1]))
+    return out, PrefillScores(colsum_all=colsum_all,
+                              colsum_window=colsum_window)
+
+
+def _window_colsum(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor,
+                   w: int, scale: float) -> torch.Tensor:
+    """SnapKV observation-window scores: the float32 softmax of the last w
+    real query rows over the keys (causal, pad keys masked), summed over
+    those rows.  q, k: [B, H, S, D] -> [B, H, S] float32."""
+    B, H, S, D = q.shape
+    dev = q.device
+    tl = true_len.to(device=dev, dtype=torch.long)
+    kv_idx = torch.arange(S, device=dev)
+    # The last w real queries of each (right-padded) row.
+    row_pos = (tl[:, None] - w + torch.arange(w, device=dev)).clamp(0, S - 1)
+    q_win = torch.gather(q, 2, row_pos[:, None, :, None].expand(B, H, w, D))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q_win.float(), k.float()) * scale
+    # Causal in absolute positions, pad keys masked: for the last w rows
+    # this is the reference's w x w tail mask.
+    mask = (kv_idx <= row_pos[:, :, None]) & (kv_idx < tl[:, None, None])
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    return torch.softmax(logits, dim=-1).sum(dim=2)
+
+
+def pool_scores(scores: torch.Tensor, kernel_size: int, pooling: str
+                ) -> torch.Tensor:
+    """1-D pooling over the key axis of [B, H, S] scores with stride 1 and
+    padding kernel_size // 2: ``avg_pool1d`` semantics (the sum divided by
+    kernel_size, zero pads included) or ``max_pool1d``'s, where the pads
+    never win (scores are non-negative softmax sums).  The window is
+    reduced left to right, one shifted slice at a time."""
+    pad = kernel_size // 2
+    if pooling == "avgpool":
+        x, combine = F.pad(scores, (pad, pad)), torch.add
+    elif pooling == "maxpool":
+        x, combine = F.pad(scores, (pad, pad), value=NEG_INF), torch.maximum
+    else:
+        raise ValueError(f"pooling {pooling!r} not supported")
+    n = x.shape[-1] - kernel_size + 1
+    out = x[..., :n]
+    for j in range(1, kernel_size):
+        out = combine(out, x[..., j:j + n])
+    return out / kernel_size if pooling == "avgpool" else out
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,

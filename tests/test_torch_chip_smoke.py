@@ -55,6 +55,34 @@ def test_bounds_at_d128_are_set_by_operations():
         pytest.approx(73.728e9 / 989e12 * 1e3, rel=1e-12), "operations")
 
 
+def test_bounds_of_the_unscored_route_are_set_by_operations():
+    """flash_prefill with need_scores=False (snapkv, streamingllm, headwise)
+    at the main path's shape: the attention side alone, QK^T and PV over
+    the 3000 * 3001 / 2 = 4,501,500 causal pairs of the real rows, 4 * 64
+    operations and one exp each."""
+    b = chip_smoke.bounds(1, 32, 4096, 64, 3000, 2, RATE)
+    # 32 x 256 x 4,501,500 = 36.876288 GFLOP at 989 TFLOP/s.
+    assert b[chip_smoke.UNSCORED] == (
+        pytest.approx(36.876288e9 / 989e12 * 1e3, rel=1e-12), "operations")
+    # The 32 x 4,501,500 exps and the bytes take less.
+    assert 144_048_000 / RATE * 1e3 < b[chip_smoke.UNSCORED][0]
+    assert 32 * 3000 * (4 * 64 * 2 + 8) / 3.35e12 * 1e3 < \
+        b[chip_smoke.UNSCORED][0]
+    assert b[chip_smoke.UNSCORED][0] < b["flash_prefill"][0]
+
+
+def test_launches_expected_per_prefill():
+    """flash_prefill in every layer's prefill; colsum_scores only where the
+    method ranks by cumulative attention."""
+    from scope_tpu_torch import CompressionConfig
+    spec = chip_smoke.small_spec(4)
+    for method, colsum in (("h2o", 4), ("pyramidkv", 4), ("snapkv", 0),
+                           ("streamingllm", 0), ("headwise", 0)):
+        comp = CompressionConfig(method=method, max_capacity_prompt=64)
+        assert chip_smoke.per_prefill(spec, comp) == {
+            "flash_prefill": 4, "colsum_scores": colsum}
+
+
 def test_bounds_of_a_short_prompt_are_set_by_bytes():
     """Few real rows and many heads: moving the bytes takes longest.  8
     real rows of 32 x 4 heads at D=128, bf16: flash reads q/k/v and writes

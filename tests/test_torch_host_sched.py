@@ -368,9 +368,7 @@ def test_not_host_schedulable_raises():
         HostScheduledDecoder(TSPEC, comp, EngineConfig(**ENGINE))
 
 
-@pytest.mark.parametrize("method,metric", [
-    ("snapkv", "jump"), ("streamingllm", "slm"), ("quest", "jump"),
-    ("pyramidkv", "jump")])
+@pytest.mark.parametrize("method,metric", [("quest", "jump")])
 def test_unported_methods_raise(method, metric):
     comp = CompressionConfig(**dict(comp_kw(method, metric), beta=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

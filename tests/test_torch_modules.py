@@ -242,8 +242,7 @@ def test_compress_prefill_matches_jax(method, S, true_len):
                                       rt.cache_v[b, :, :n].numpy())
 
 
-@pytest.mark.parametrize("method", ["snapkv", "pyramidkv", "streamingllm",
-                                    "quest", "headwise"])
+@pytest.mark.parametrize("method", ["quest"])
 def test_unported_methods_raise(method):
     k = torch.zeros((1, 1, 128, 8))
     comp = tconfig.CompressionConfig(method=method, max_capacity_prompt=64)
@@ -260,13 +259,14 @@ def test_unported_methods_raise(method):
 def _sched_comp(metric, method="h2o"):
     kw = dict(method=method, decoding_metric=metric, max_capacity_prompt=64,
               window_size=8, decoding_window_size=32,
-              decoding_recent_size=16, delta=3)
+              decoding_recent_size=16, delta=3, headwise_max_budget=64)
     return jconfig.CompressionConfig(**kw), tconfig.CompressionConfig(**kw)
 
 
 @pytest.mark.parametrize("metric,method", [
     ("jump", "h2o"), ("linear", "h2o"), ("fixed", "h2o"), ("jump", "allkv"),
-    ("none", "h2o"), ("h2o", "h2o")])
+    ("none", "h2o"), ("h2o", "h2o"), ("slm", "streamingllm"),
+    ("pyramidinfer", "pyramidkv"), ("jump", "headwise")])
 def test_schedule_decision_matches_jax(metric, method):
     """A whole decode run of counter/gate decisions, layer by layer."""
     jc, tc = _sched_comp(metric, method)
@@ -295,16 +295,6 @@ def test_schedule_decision_matches_jax(metric, method):
             length = np.where(gate, np.asarray(pj) + np.asarray(nj)
                               + jc.decoding_recent_size, length)
     assert fired > 0 or metric == "none"
-
-
-@pytest.mark.parametrize("metric", ["slm", "pyramidinfer"])
-def test_unported_metrics_raise(metric):
-    _, tc = _sched_comp(metric)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsched.schedule_decision(tc, tsched.DecodeCaps(16, 128),
-                                 tsched.SchedState.init(),
-                                 torch.tensor([100]), torch.tensor([100]),
-                                 0, 2)
 
 
 def _block_inputs(seed, B=2, H=4, cap=128, D=8):
@@ -425,7 +415,8 @@ def test_unported_model_features_raise():
     spec, jc, je, jp, tspec, tc, te, tp = _tiny(True)
     for s, c in ((tregistry.get_spec("tiny-mistral"), tc),
                  (tregistry.get_spec("tiny-qwen2"), tc),
-                 (tspec, tc.replace(method="snapkv"))):
+                 (tspec, tc.replace(method="quest")),
+                 (tspec, tc.replace(mistral_window_parity=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tllama.prefill(s, c, te, tp, torch.zeros((1, 128)),
                            torch.tensor([100]))
@@ -453,6 +444,7 @@ PORT_MODULES = [
     "scope_tpu_torch.ops.common", "scope_tpu_torch.ops.build",
     "scope_tpu_torch.ops.flash_prefill", "scope_tpu_torch.ops.attention",
     "scope_tpu_torch.compression.policies",
+    "scope_tpu_torch.compression.headwise",
     "scope_tpu_torch.compression.schedulers",
     "scope_tpu_torch.compression.host_sched",
     "scope_tpu_torch.engine.host_loop", "scope_tpu_torch.engine.generate",

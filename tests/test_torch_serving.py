@@ -186,7 +186,7 @@ def test_serving_rejects_mismatched_method_metric(weights):
 
 @pytest.mark.parametrize("kw,comp", [
     (dict(prefill_chunk=32), {}), (dict(mesh=object()), {}),
-    ({}, dict(method="snapkv")), ({}, dict(method="quest")),
+    ({}, dict(method="quest")),
     ({}, dict(method="allkv", mistral_window_parity=True))])
 def test_serving_refuses_what_is_not_ported(weights, kw, comp):
     tc = configs("fixed")[2].replace(**comp)
