@@ -18,8 +18,10 @@ Three phases, each fatal on failure:
    shape and the window case; m2 = 0 and l2 = 1 in every row), and time
    kernel, plain version and, for flash_prefill,
    F.scaled_dot_product_attention over all rows and over the real rows,
-   beside each kernel's bound (bytes, bf16 tensor-core operations or exps,
-   whichever takes longest).  Each kernel's design (tensor-core products,
+   and chunked prefill's finalize scores (prefill_scores_only: the scored
+   flash_prefill over V = K plus colsum_scores, held against and timed
+   beside the blocked torch version), beside each kernel's bound (bytes,
+   bf16 tensor-core operations or exps, whichever takes longest).  Each kernel's design (tensor-core products,
    asynchronous copies) is read from its SASS.
 3. main path: a small model on the card (kernels) against the CPU (plain
    versions; cond mode and the host-scheduled path), then Llama-3.2-1B at
@@ -55,11 +57,29 @@ Three phases, each fatal on failure:
    lengths as pyramid_prefill_kept says and within capacity, headwise's
    per-head budgets in range), pyramidkv's layered host path under the
    sync check, and 12 requests on 8 slots served on the device-cond path
-   (pyramidkv + jump).  Every kernel launch counter is set to 0 just
-   before each run and read just after (16 launches of flash_prefill per
-   prefill or admission, and 16 of colsum_scores where the method ranks
-   by cumulative attention: h2o, pyramidkv); each run prints its numbers
-   beside the card's name and power limit, and each phase its seconds.
+   (pyramidkv + jump); (h) Quest and chunked prefill: the small model on
+   the card against the CPU (Quest + none / fixed / jump on the host path
+   and in cond mode, the paged decode region, int8 KV, Quest served on 3
+   slots, chunked prefill of h2o / snapkv / pyramidkv / quest against
+   monolithic prefill, chunked admission against monolithic admission;
+   tokens and per-layer lengths identical at every step), then 1B Quest +
+   jump (16-token pages, 2 dense skip layers, capacity 12160) at 3000
+   tokens with both eviction granularities (host and cond per-layer
+   lengths identical, waves of two steps, teacher-forced logits within
+   LOGIT_REL with the buckets pinned to the whole cache), its host path
+   under the sync check, Quest served on 8 slots (12 requests of
+   2100-3000 tokens, 128 new), and h2o + jump served with chunked
+   admission (prefill_chunk=512) against monolithic admission (first
+   tokens equal; TTFT and the longest gap between decode dispatches of
+   both).  Every kernel launch counter is set to 0 just before each run
+   and read just after (16 launches of flash_prefill per prefill or
+   admission, and 16 of colsum_scores where the method ranks by
+   cumulative attention: h2o, pyramidkv; a chunked prefill launches
+   flash_prefill with need_scores=False 16 times per chunk, for its chunk
+   attention, and both kernels 16 times in its finalize pass for those
+   methods);
+   each run prints its numbers beside the card's name and power limit,
+   and each phase its seconds.
 
 Prints the card's name and power limit, a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}.
@@ -335,7 +355,32 @@ def check_kernels(seed):
             timing = time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2,
                                   rl2, err)
             timing["err"][UNSCORED] = unscored["out"]
+            timing["err"]["scores_only"] = check_scores_only(q, k, ttl, tl)
     return timing
+
+
+def check_scores_only(q, k, ttl, tl):
+    """Chunked prefill's finalize scores on the card (the scored
+    flash_prefill over V = K plus colsum_scores) against the blocked torch
+    version in float32 on the same values: colsum within TOL["colsum"] and
+    the kept sets agreeing to TOPK_MIN.  Returns the max abs error."""
+    from scope_tpu_torch.ops import attention
+    got = attention.prefill_scores_only(q, k, ttl, window_size=W,
+                                        need_colsum_all=True).colsum_all
+    ref = attention._blocked_colsum(q.float(), k.float(), ttl, W,
+                                    1.0 / q.shape[-1] ** 0.5, 256)
+    sync()
+    rtol, atol = TOL["colsum"]
+    d = (got - ref).abs()
+    need = float((d - rtol * ref.abs()).max())
+    agree = topk_agreement(got, ref, tl)
+    if need > atol or agree < TOPK_MIN:
+        fail(f"prefill_scores_only: colsum needs atol {need:.3g} (tolerance "
+             f"{atol}), top-k agreement {agree:.4f}")
+    print(f"kernels prefill_scores_only (chunked finalize) at the main "
+          f"path's shape: kernel pair vs blocked torch version, max_abs_err "
+          f"{float(d.max()):.3g}, topk_agree={agree:.4f}", flush=True)
+    return float(d.max())
 
 
 def bounds(B, H, S, D, n_real, elem_bytes, exps_per_s):
@@ -403,6 +448,17 @@ def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
     qr, kr, vr = (x[:, :, :n_real].contiguous() for x in (q, k, v))
     t["sdpa_real_rows"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         qr, kr, vr, is_causal=True), 10)
+    # Chunked prefill's finalize scores: the kernel pair (the scored flash
+    # over V = K, its out discarded, then colsum), the blocked torch
+    # version on the card, and the discarded out half (the attention side
+    # alone: the need_scores=False route on the same q and k).
+    from scope_tpu_torch.ops import attention
+    t["scores_pair"] = cuda_ms(lambda: attention.prefill_scores_only(
+        q, k, ttl, window_size=W, need_colsum_all=True), 10)
+    t["scores_blocked"] = cuda_ms(lambda: attention._blocked_colsum(
+        q, k, ttl, W, 1.0 / D ** 0.5, 256), 3)
+    t["scores_out_half"] = cuda_ms(lambda: fp.flash_prefill(
+        q, k, k, ttl, window_size=W, need_scores=False), 10)
     rate = exp_rate()
     t["bounds"] = bounds(B, H, S, D, n_real, q.element_size(), rate)
     t["err"] = err
@@ -418,7 +474,10 @@ def time_kernels(fp, q, k, v, ttl, m2, l2, qf, kf, vf, rm2, rl2, err):
           f"only), colsum_scores {t['colsum_scores']:.3f} ms (plain "
           f"{t['colsum_scores_plain']:.3f}); flash_prefill need_scores=False "
           f"{t[UNSCORED]:.3f} ms (plain {t[UNSCORED + '_plain']:.3f}; the "
-          f"same function as SDPA over the real rows); exp rate "
+          f"same function as SDPA over the real rows); chunked finalize "
+          f"scores: kernel pair {t['scores_pair']:.3f} ms, blocked torch "
+          f"version {t['scores_blocked']:.3f} ms, the discarded out half "
+          f"{t['scores_out_half']:.3f} ms; exp rate "
           f"{rate:.4g}/s; bounds "
           f"{t['bounds']}; bf16 designs from SASS {t['design']}", flush=True)
     return t
@@ -643,6 +702,7 @@ def teacher_forced(spec, comp, ecfg, params, toks, tl, fed, ref_logits):
     # bucket (pyramidkv's shorter layers) sums the bf16 products in another
     # order and moved the logits by up to 1.7% norm-wise (PERF.md §6).
     dec.buckets = (dec.capacity,)
+    dec.dec_buckets = (ecfg.max_new_tokens + 1,)
     ttl = torch.as_tensor(tl, device=DEVICE)
     logits, cache, state = llama.prefill(
         spec, comp, ecfg, params, torch.as_tensor(toks, device=DEVICE), ttl)
@@ -807,18 +867,25 @@ def sync_free(spec, comp, ecfg, n_prompt, seed):
 # phase 3, serving: (e) small model, card against CPU; (f) Llama-3.2-1B
 # ---------------------------------------------------------------------------
 
-def serve(spec, comp, ecfg, params, reqs, device, max_slots, what):
+def serve(spec, comp, ecfg, params, reqs, device, max_slots, what,
+          prefill_chunk=None):
     """ServingEngine over reqs [(prompt, max_new)]: tokens per request in
     submit order.  On the card each kernel must launch as the method's
-    prefill launches it (``per_prefill``) in each admission."""
+    prefill launches it (``per_prefill``, or ``per_chunked`` with chunked
+    admission) in each admission."""
     from scope_tpu_torch.engine.serving import ServingEngine
     eng = ServingEngine(spec, comp, ecfg, params, max_slots=max_slots,
-                        device=device)
+                        prefill_chunk=prefill_chunk, device=device)
     ids = [eng.submit(p, n) for p, n in reqs]
     if device == "cpu":
         res = eng.run()
     else:
-        res, _ = counted(what, per_prefill(spec, comp), len(reqs), eng.run)
+        if prefill_chunk:
+            expect, n = per_chunked(spec, comp, [len(p) for p, _ in reqs],
+                                    prefill_chunk), 1
+        else:
+            expect, n = per_prefill(spec, comp), len(reqs)
+        res, _ = counted(what, expect, n, eng.run)
     return [res[i] for i in ids]
 
 
@@ -1199,15 +1266,23 @@ def serving_main(seed, card):
 # phase 3, methods: (g) SnapKV, StreamingLLM, PyramidKV and headwise
 # ---------------------------------------------------------------------------
 
-def decode_run(spec, comp, ecfg, params, toks, tl, n_steps, device, host):
-    """Prefill, then n_steps greedy decode steps on the host path
-    (HostScheduledDecoder.step, B=1) or in cond mode: tokens [B, n+1] and
-    the per-layer lengths [L, B] after prefill and after each step."""
+def decode_run(spec, comp, ecfg, params, toks, tl, n_steps, device, host,
+               chunk=None):
+    """Prefill (chunked, ``chunk`` tokens at a time, when given), then
+    n_steps greedy decode steps on the host path (HostScheduledDecoder.step,
+    B=1) or in cond mode: tokens [B, n+1] and the per-layer lengths [L, B]
+    after prefill and after each step."""
     from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
     from scope_tpu_torch.models import llama
+    from scope_tpu_torch.models.chunked_prefill import prefill_chunked
     ttl = torch.as_tensor(tl, device=device)
-    logits, cache, state = llama.prefill(
-        spec, comp, ecfg, params, torch.as_tensor(toks, device=device), ttl)
+    tt = torch.as_tensor(toks, device=device)
+    if chunk:
+        logits, cache, state = prefill_chunked(spec, comp, ecfg, params, tt,
+                                               ttl, chunk_size=chunk)
+    else:
+        logits, cache, state = llama.prefill(spec, comp, ecfg, params, tt,
+                                             ttl)
     if host:
         dec = HostScheduledDecoder(spec, comp, ecfg)
         sched = dec.new_scheduler(int(tl[0]), prompt_pad=toks.shape[1])
@@ -1499,6 +1574,357 @@ def methods_main(seed, card):
     return launches["snapkv"]
 
 
+# ---------------------------------------------------------------------------
+# phase (h): Quest, chunked prefill and chunked admission
+# ---------------------------------------------------------------------------
+
+def per_chunked(spec, comp, lens, chunk):
+    """Each kernel's launches over chunked prefills of ``lens`` real
+    tokens (one prefill each; a batch counts as its longest row) in chunks
+    of ``chunk``: every chunk attends through flash_prefill
+    (need_scores=False) in every layer, and each finalize pass scores the
+    staged prompt with flash_prefill (scored) and colsum_scores in every
+    layer of the methods that rank by cumulative attention."""
+    L = spec.num_layers
+    chunks = sum(-(-int(n) // chunk) for n in lens)
+    scored = L * len(lens) if comp.method in ("h2o", "pyramidkv") else 0
+    return {"flash_prefill": L * chunks + scored, "colsum_scores": scored}
+
+
+# (metric, host path, quest_decode_pages, kv dtype): the small model's
+# Quest runs.
+SMALL_QUEST = [("none", True, 0, "bfloat16"), ("none", False, 0, "bfloat16"),
+               ("fixed", True, 0, "bfloat16"), ("fixed", False, 0, "bfloat16"),
+               ("jump", True, 0, "bfloat16"), ("jump", False, 0, "bfloat16"),
+               ("none", True, 4, "bfloat16"), ("none", False, 4, "bfloat16"),
+               ("jump", False, 0, "int8")]
+SMALL_CHUNK = 64
+
+
+def small_quest_check(seed):
+    """(h) small: the 2-layer D=64 float32 model on the card against the
+    CPU, tokens and per-layer lengths identical at every step: Quest (one
+    skip layer) with none / fixed / jump on the host path (B=1) and in cond
+    mode (B=2 ragged), the paged decode region, int8 KV; Quest served on 3
+    slots; chunked prefill on the card against the CPU's monolithic prefill
+    for h2o, snapkv, pyramidkv and quest; chunked admission on the card
+    against monolithic admission on the CPU."""
+    from scope_tpu_torch import EngineConfig
+    from scope_tpu_torch.models import llama
+    spec = small_spec()
+    ecfg = EngineConfig(max_prompt_len=256, max_new_tokens=48,
+                        dtype="float32")
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, 512, (2, 256)).astype(np.int32)
+    tl = np.array([230, 171], np.int32)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_cpu = llama.init_params(spec, g, torch.float32, device="cpu")
+    p_gpu = on_card(p_cpu)
+    done = []
+
+    def same(what, comp, e, B, host, chunk=None):
+        (got, lens), _ = counted(
+            what, per_chunked(spec, comp, [max(tl[:B])], chunk) if chunk
+            else per_prefill(spec, comp), 1, lambda: decode_run(
+                spec, comp, e, p_gpu, toks[:B], tl[:B], 47, DEVICE, host,
+                chunk=chunk))
+        ref, ref_lens = decode_run(spec, comp, e, p_cpu, toks[:B], tl[:B],
+                                   47, "cpu", host)
+        if not (got == ref).all() or lens != ref_lens:
+            fail(f"{what}: card and CPU differ (tokens from "
+                 f"{first_difference(got[0], ref[0])}, lengths "
+                 f"{lens != ref_lens})")
+        return lens
+
+    for metric, host, pages, kv in SMALL_QUEST:
+        comp = small_comp("quest", metric, quest_skip_layers=1,
+                          quest_decode_pages=pages, evict_per_qhead=host)
+        what = (f"small model quest+{metric} pages={pages} kv={kv} "
+                f"{'host path' if host else 'cond mode'}")
+        lens = same(what, comp, ecfg.replace(kv_dtype=kv), 1 if host else 2,
+                    host)
+        done.append(f"quest+{metric}{f' pages={pages}' if pages else ''}"
+                    f"{' int8' if kv == 'int8' else ''} "
+                    f"{'host' if host else 'cond'} (lengths {lens[0]} -> "
+                    f"{lens[-1]})")
+    for method in ("h2o", "snapkv", "pyramidkv", "quest"):
+        comp = small_comp(method, "jump", quest_skip_layers=1,
+                          evict_per_qhead=False)
+        same(f"small model {method}+jump chunked prefill (card) vs "
+             f"monolithic (CPU)", comp, ecfg, 2, False, chunk=SMALL_CHUNK)
+        done.append(f"{method} chunked (C={SMALL_CHUNK}) = monolithic")
+    reqs = [(rng.integers(1, 512, n).astype(np.int32), m)
+            for n, m in ((230, 40), (171, 33), (120, 45), (250, 24),
+                         (90, 38))]
+    for method, chunk in (("quest", None), ("h2o", SMALL_CHUNK)):
+        comp = small_comp(method, "jump", quest_skip_layers=1,
+                          evict_per_qhead=False)
+        e = ecfg.replace(decode_chunk_sizes=(8, 4))
+        got = serve(spec, comp, e, p_gpu, reqs, DEVICE, 3,
+                    f"small serving {method}+jump prefill_chunk={chunk}",
+                    prefill_chunk=chunk)
+        ref = serve(spec, comp, e, p_cpu, reqs, "cpu", 3, "")
+        if got != ref or [len(t) for t in got] != [m for _, m in reqs]:
+            fail(f"small serving {method}+jump prefill_chunk={chunk}: card "
+                 f"and CPU differ at "
+                 f"{[first_difference(a, b) for a, b in zip(got, ref)]}")
+        how = (f", chunked admission (C={chunk}) vs monolithic" if chunk
+               else "")
+        done.append(f"served {method}+jump, 5 requests on 3 slots{how}")
+    print(f"quest/chunked (h) small model (D=64, float32), card kernels vs "
+          f"CPU plain versions, tokens and per-layer lengths identical at "
+          f"every step: {'; '.join(done)}", flush=True)
+
+
+def quest_config(per_qhead):
+    """(h) at Llama-3.2-1B: Quest + jump with 16-token pages and two dense
+    skip layers at the main path's knobs; capacity 12160 (the whole prompt
+    and every decode token: Quest evicts nothing from the prompt)."""
+    spec, comp, ecfg, n_prompt = main_config()
+    comp = comp.replace(method="quest", evict_per_qhead=per_qhead,
+                        chunk_size=16, quest_skip_layers=2)
+    return spec, comp, ecfg, n_prompt
+
+
+QUEST_CAPACITY = 12160
+
+
+def quest_path(spec, comp, ecfg, n_prompt, seed, card):
+    """(h) Quest at 1B: StreamingGenerator on the host path (timed), cond
+    mode as the reference (per-layer lengths and fire steps identical at
+    every step, waves of two consecutive steps, the skip layers never
+    shrinking), and the host path teacher-forced on cond mode's tokens with
+    its length and decode-region buckets pinned to the whole cache (logits
+    within LOGIT_REL).  Returns the entry point's launches."""
+    from scope_tpu_torch.engine.generate import StreamingGenerator
+    name = (f"quest (h) {spec.name} quest+{comp.decoding_metric} "
+            f"evict_per_qhead={comp.evict_per_qhead}")
+    cap = ecfg.cache_capacity(comp)
+    if cap != QUEST_CAPACITY:
+        fail(f"{name}: capacity {cap}, expected {QUEST_CAPACITY}")
+    params, toks, tl = main_inputs(spec, ecfg, n_prompt, seed)
+    expect = per_prefill(spec, comp)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sg = StreamingGenerator(spec, comp, ecfg, params, eos_ids=(),
+                            device=DEVICE)
+    if sg.host_decoder is None or not sg.host_decoder.quest:
+        fail(f"{name}: StreamingGenerator did not take the quest host path")
+    res, launches = counted(f"{name} StreamingGenerator", expect, 1,
+                            lambda: sg.generate(toks, tl, N_NEW))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    seq = res.tokens[0]
+    if res.gen_lengths[0] != N_NEW or not (
+            (seq >= 0) & (seq < spec.vocab_size)).all():
+        fail(f"{name}: bad tokens {seq[:8]}...")
+    (got, cond_tpot, lengths, logs, _), _ = counted(
+        f"{name} cond", expect, 1, lambda: cond_run(
+            spec, comp, ecfg, params, toks, tl, N_NEW - 1))
+    (errs, h_lengths, mirror), _ = counted(
+        f"{name} host, teacher-forced", expect, 1, lambda: teacher_forced(
+            spec, comp, ecfg, params, toks, tl, got, logs))
+    del logs
+    if h_lengths != lengths:
+        s = next(i for i, (a, b) in enumerate(zip(h_lengths, lengths))
+                 if a != b)
+        fail(f"{name}: host and cond per-layer lengths differ after decode "
+             f"step {s - 1}: {h_lengths[s]} vs {lengths[s]}")
+    if any(x != m for x, m in zip(h_lengths[1:], mirror)):
+        fail(f"{name}: the host mirror's lengths left the cache's")
+    # A fire step ends no longer than it began in some layer (a layer that
+    # fires again right after its wave keeps its length).
+    waves = [s - 1 for s in range(1, len(lengths))
+             if any(b <= a for a, b in zip(lengths[s - 1], lengths[s]))]
+    skip = comp.quest_skip_layers
+    if (len(waves) < 2 or waves[1] != waves[0] + 1
+            or any(x[l] != n_prompt + s for s, x in enumerate(lengths)
+                   for l in range(skip))):
+        fail(f"{name}: fire steps {waves[:6]} (expected pairs of "
+             f"consecutive steps) or a skip layer's length left prompt + "
+             f"step")
+    if max(max(x) for x in lengths) > cap:
+        fail(f"{name}: a cache length exceeded capacity {cap}")
+    worst = max(errs)
+    if not worst <= LOGIT_REL:
+        fail(f"{name}: teacher-forced logits off by {worst:.3g} norm-wise "
+             f"at decode step {int(np.argmax(errs))} (tolerance {LOGIT_REL})")
+    print(f"{name}: StreamingGenerator (host path) TTFT "
+          f"{res.ttft_s * 1e3:.1f} ms, {rate(res.tpot_s)}; cond mode TTFT "
+          f"{cond_tpot[0] * 1e3:.1f} ms, {rate(cond_tpot)}; peak memory "
+          f"{peak / 2**30:.2f} GiB (cache capacity {cap}); host = cond "
+          f"per-layer lengths at all {N_NEW - 1} steps, fire steps "
+          f"{waves[:6]} (two-step waves), skip layers at prompt + step; "
+          f"teacher-forced "
+          f"logits max {worst:.3g}, median {np.median(errs):.3g} (tolerance "
+          f"{LOGIT_REL}); free-running agreement "
+          f"{np.mean(seq == np.array(got)):.4f}; launches per prefill "
+          f"{launches}; card {card}", flush=True)
+    return launches
+
+
+SERVE_H = dict(slots=8, requests=12, prompt=(2100, 3000), new=128)
+PREFILL_CHUNK = 512
+
+
+def serve_1b(spec, comp, ecfg, params, reqs, expect, prefills, what,
+             prefill_chunk=None):
+    """Serve reqs on SERVE_H's slots: (tokens per request, TTFT ms per
+    request, aggregate decode tok/s, the longest host gap between two
+    decode dispatches in ms, peak GiB, launches, TPOT ms per request).
+    Fails on a wrong token count or a non-finite logit."""
+    from scope_tpu_torch.engine.serving import ServingEngine
+    from scope_tpu_torch.models import llama
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(spec, comp, ecfg, params, max_slots=SERVE_H["slots"],
+                        pipeline_depth=1, prefill_chunk=prefill_chunk,
+                        device=DEVICE)
+    if not eng._host_mode:
+        fail(f"{what}: not in host mode")
+    bad = torch.zeros((), dtype=torch.bool, device=eng.device)
+    stamps, dispatch, decode_step = [], eng._dispatch, llama.decode_step
+
+    def timed_dispatch():
+        stamps.append(time.perf_counter())
+        dispatch()
+
+    def checked(*a, **k):
+        nonlocal bad
+        out = decode_step(*a, **k)
+        bad = bad | ~torch.isfinite(out[0]).all()
+        return out
+    eng._dispatch, llama.decode_step = timed_dispatch, checked
+    ids = [eng.submit(q, m) for q, m in reqs]
+    t0 = time.perf_counter()
+    try:
+        res, launches = counted(what, expect, prefills, eng.run)
+        sync()
+    finally:
+        llama.decode_step = decode_step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    toks = [res[i] for i in ids]
+    if [len(t) for t in toks] != [m for _, m in reqs] or bool(bad):
+        fail(f"{what}: token counts {[len(t) for t in toks]} or non-finite "
+             f"logits ({bool(bad)})")
+    ttft = [eng.request_metrics[i]["ttft_s"] * 1e3 for i in ids]
+    tpot = [eng.request_metrics[i]["tpot_s"] * 1e3 for i in ids]
+    gap = max(np.diff(stamps)) * 1e3 if len(stamps) > 1 else 0.0
+    n_dec = sum(len(t) - 1 for t in toks)
+    return toks, ttft, n_dec / wall, gap, peak / 2**30, launches, tpot
+
+
+def chunked_prefill_check(spec, comp, ecfg, params, prompt, card):
+    """One prompt through ChunkedPrefiller (PREFILL_CHUNK) and through the
+    monolithic prefill: logits within LOGIT_REL norm-wise, the same first
+    token and per-layer lengths, each kernel launched as per_chunked and
+    per_prefill say; and both warm times (host clock, synchronised)."""
+    from scope_tpu_torch.models import llama
+    from scope_tpu_torch.models.chunked_prefill import ChunkedPrefiller
+    toks = np.zeros((1, ecfg.bucket_for(len(prompt))), np.int32)
+    toks[0, :len(prompt)] = prompt
+    tt = torch.as_tensor(toks, device=DEVICE)
+    ttl = torch.tensor([len(prompt)], dtype=torch.int32, device=DEVICE)
+    chunker = ChunkedPrefiller(spec, comp, ecfg, chunk_size=PREFILL_CHUNK)
+
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+    what = f"chunked prefill (h) {spec.name} {comp.method}"
+    ((lc, cc, _), t_c), _ = counted(
+        what, {k: 2 * n for k, n in per_chunked(
+            spec, comp, [len(prompt)], PREFILL_CHUNK).items()}, 1,
+        lambda: timed(lambda: chunker(params, tt, ttl)))
+    ((lm, cm, _), t_m), _ = counted(
+        f"{what} monolithic", per_prefill(spec, comp), 2,
+        lambda: timed(lambda: llama.prefill(spec, comp, ecfg, params, tt,
+                                            ttl)))
+    err = float((lc.float() - lm.float()).norm() / lm.float().norm())
+    same_tok = int(lc.argmax(-1)[0]) == int(lm.argmax(-1)[0])
+    same_len = torch.equal(cc.length, cm.length)
+    print(f"{what}, {len(prompt)} tokens in chunks of {PREFILL_CHUNK}: "
+          f"logits against the monolithic prefill's {err:.3g} norm-wise "
+          f"(tolerance {LOGIT_REL}), first token equal {same_tok}, per-layer "
+          f"lengths equal {same_len}; warm {t_c:.1f} ms chunked (every chunk "
+          f"and the finalize pass) against {t_m:.1f} ms monolithic; card "
+          f"{card}", flush=True)
+    if not (err <= LOGIT_REL and same_tok and same_len):
+        fail(f"{what}: differs from the monolithic prefill")
+
+
+def serving_quest_chunked(seed, card):
+    """(h) serving at 1B, per-kv-head eviction, 8 slots, 12 requests of
+    2100-3000 tokens and 128 new: Quest + jump in host mode, per-slot
+    QuestHostScheduler mirrors; then h2o + jump with chunked admission
+    (prefill_chunk=512) against monolithic admission: first tokens equal,
+    TTFT and the longest gap between decode dispatches of both.  Returns
+    the chunked run's launches."""
+    spec, comp, ecfg, _ = quest_config(False)
+    params, _, _ = main_inputs(spec, ecfg, 16, seed)
+    rng = np.random.default_rng(seed + 3)
+    n = SERVE_H["requests"]
+    reqs = [(rng.integers(1, spec.vocab_size, int(k)).astype(np.int32),
+             SERVE_H["new"]) for k in rng.integers(*SERVE_H["prompt"], n)]
+    what = f"serving (h) {spec.name} quest+jump"
+    _, ttft, tps, gap, peak, got, tpot = serve_1b(
+        spec, comp, ecfg, params, reqs, per_prefill(spec, comp), n, what)
+    print(f"{what}: {n} requests on {SERVE_H['slots']} slots, {tps:.1f} "
+          f"tok/s aggregate; TTFT median {np.median(ttft):.1f} ms, p95 "
+          f"{pct(ttft, 95):.1f} ms; TPOT median {np.median(tpot):.2f} ms; "
+          f"longest gap between decode dispatches "
+          f"{gap:.1f} ms; peak memory {peak:.2f} GiB; launches {got}; card "
+          f"{card}", flush=True)
+    comp = comp.replace(method="h2o")
+    chunked_prefill_check(spec, comp, ecfg, params, reqs[0][0], card)
+    runs = {}
+    for chunk in (PREFILL_CHUNK, None):
+        what = (f"serving (h) {spec.name} h2o+jump "
+                f"{f'prefill_chunk={chunk}' if chunk else 'monolithic'}")
+        expect, prefills = ((per_chunked(spec, comp, [len(q) for q, _ in
+                                          reqs], chunk), 1) if chunk
+                            else (per_prefill(spec, comp), n))
+        runs[chunk] = serve_1b(spec, comp, ecfg, params, reqs, expect,
+                               prefills, what, prefill_chunk=chunk)
+        toks, ttft, tps, gap, peak, launches, tpot = runs[chunk]
+        print(f"{what}: {n} requests on {SERVE_H['slots']} slots, {tps:.1f} "
+              f"tok/s aggregate; TTFT median {np.median(ttft):.1f} ms, p95 "
+              f"{pct(ttft, 95):.1f} ms; TPOT median {np.median(tpot):.2f} "
+              f"ms; longest gap between decode "
+              f"dispatches {gap:.1f} ms; peak memory {peak:.2f} GiB; "
+              f"launches {launches}; card {card}", flush=True)
+    chunked, mono = runs[PREFILL_CHUNK][0], runs[None][0]
+    firsts = [a[0] == b[0] for a, b in zip(chunked, mono)]
+    agree = np.mean([np.mean(np.array(a) == np.array(b))
+                     for a, b in zip(chunked, mono)])
+    print(f"serving (h) chunked vs monolithic admission: first tokens equal "
+          f"in {sum(firsts)} of {n} requests; token agreement {agree:.4f} "
+          f"(batched bf16 decode parts greedy streams of random weights); "
+          f"card {card}", flush=True)
+    if not all(firsts):
+        fail(f"serving (h): chunked admission's first tokens differ from "
+             f"monolithic admission's in requests "
+             f"{[i for i, f in enumerate(firsts) if not f]}")
+    return runs[PREFILL_CHUNK][5]
+
+
+def quest_main(seed, card):
+    """(h) at 1B: Quest's path at both eviction granularities, its host
+    path under the sync check, then serving.  Returns (the quest prefill's
+    launches, the chunked admissions' launches)."""
+    launches = None
+    for per_qhead in (True, False):
+        spec, comp, ecfg, n_prompt = quest_config(per_qhead)
+        launches = quest_path(spec, comp, ecfg, n_prompt, seed, card)
+    sync_free(spec, comp, ecfg, n_prompt, seed)
+    return launches, serving_quest_chunked(seed, card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1548,6 +1974,11 @@ def main():
     unscored_launches = phase("methods (g) Llama-3.2-1B", methods_main,
                               args.seed, card)
     print(f"phase methods (g): {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    phase("quest/chunked (h) small model", small_quest_check, args.seed)
+    quest_launches, chunk_launches = phase(
+        "quest/chunked (h) Llama-3.2-1B", quest_main, args.seed, card)
+    print(f"phase quest/chunked (h): {time.time() - t:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "scope_tpu")
            for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -1577,19 +2008,33 @@ def main():
                                      if base == "flash_prefill" else None),
             "library": sdpa if name == "flash_prefill" else None,
         }
+        if base == "flash_prefill":
+            # Chunked prefill's finalize scores: this kernel (scored, its
+            # out discarded) plus colsum_scores.
+            entry.update(
+                scores_only_pair_ms=timing["scores_pair"],
+                scores_only_blocked_torch_ms=timing["scores_blocked"],
+                scores_only_out_half_ms=timing["scores_out_half"],
+                scores_only_max_abs_err=timing["err"]["scores_only"])
         if name == UNSCORED:
             # Launched by snapkv's (and streamingllm's, headwise's)
             # prefill, phase (g); the same function as SDPA over the real
             # rows.
             entry.update(
                 launches=unscored_launches["flash_prefill"],
+                launches_quest_prefill=quest_launches["flash_prefill"],
+                launches_chunk_attention=(chunk_launches["flash_prefill"]
+                                          - chunk_launches["colsum_scores"]),
                 max_abs_err=timing["err"][UNSCORED],
                 library="F.scaled_dot_product_attention(is_causal=True), "
                         "the same function over the real rows")
         else:
             entry.update(
                 launches_serving=serve_launches[name],
-                launches_per_admission=serve_launches[name] // SERVE_REQUESTS)
+                launches_per_admission=serve_launches[name] // SERVE_REQUESTS,
+                launches_chunked_finalize=chunk_launches["colsum_scores"],
+                launches_per_chunked_finalize=(
+                    chunk_launches["colsum_scores"] // SERVE_H["requests"]))
         kernels.append(entry)
     print(f"total {time.time() - t0:.1f} s; card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,12 +12,14 @@ and ``length`` in place during decode (appends and block rewrites), which
 saves a full-buffer copy per step.  The cache stores bf16/f32 values,
 int8 values (``k_scale`` / ``v_scale`` per layer, row, head and channel)
 or packed int4 codes (uint8, two per byte, with ``k_off`` / ``v_off``
-zero points as well); ``ops/quant.py`` has the layouts.  Quest pages come
-with the method (ROADMAP §1 item 13).  The JAX package's staging ring
-and lazy eviction (``alive`` mask, ``compact_lazy``) are not ported: they
-dodge TPU costs, a buffer copy per in-place update and a slow row gather,
-that the port's in-place CUDA writes and gathers do not pay (ROADMAP §1
-items 9 and 11).
+zero points as well); ``ops/quant.py`` has the layouts.  Quest keeps the
+per-page key extremes ``page_min`` / ``page_max``
+(``compression/quest.py``): stored values for bf16/f32 and int8 caches,
+unpacked codes (uint8, full head_dim) for int4.  The JAX package's
+staging ring and lazy eviction (``alive`` mask, ``compact_lazy``) are not
+ported: they dodge TPU costs, a buffer copy per in-place update and a
+slow row gather, that the port's in-place CUDA writes and gathers do not
+pay (ROADMAP §1 items 9 and 11).
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ class KVCache:
     v_scale: Optional[torch.Tensor] = None
     k_off: Optional[torch.Tensor] = None
     v_off: Optional[torch.Tensor] = None
+    # Quest page metadata: per-channel min / max key of each chunk_size-slot
+    # page, NP = capacity // chunk_size pages.  None for other methods.
+    page_min: Optional[torch.Tensor] = None     # [L, B, H, NP, D]
+    page_max: Optional[torch.Tensor] = None     # [L, B, H, NP, D]
 
     @property
     def capacity(self) -> int:
@@ -57,12 +63,15 @@ class KVCache:
 
 def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
                head_dim: int, dtype: torch.dtype, device=None,
-               kv_dtype: str = "bfloat16", prefill_gap: int = 0) -> KVCache:
+               kv_dtype: str = "bfloat16", prefill_gap: int = 0,
+               num_pages: int = 0) -> KVCache:
     """An empty cache.  ``dtype`` is the compute dtype (bf16 or f32), which
     the cache stores unless ``kv_dtype`` is "int8" (int8 [..., D]) or
     "int4" (uint8 [..., D/2]); quantized caches start with unit scales and
     zero offsets.  ``prefill_gap``: the reserved prefill segment (headwise's
-    ``headwise_max_budget``; 0 for the contiguous layout)."""
+    ``headwise_max_budget``; 0 for the contiguous layout).  ``num_pages`` >
+    0 adds Quest's page metadata, zeroed, in the stored dtype (uint8 codes
+    at full head_dim for int4)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {dtype} is not supported")
     int8, int4 = kv_dtype == "int8", kv_dtype == "int4"
@@ -76,6 +85,12 @@ def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
 
     def zeros():
         return torch.zeros(sshape, dtype=torch.float32, device=device)
+
+    def pages():
+        if not num_pages:
+            return None
+        return torch.zeros((num_layers, batch, num_heads, num_pages,
+                            head_dim), dtype=store, device=device)
     return KVCache(
         k=torch.zeros(shape, dtype=store, device=device),
         v=torch.zeros(shape, dtype=store, device=device),
@@ -89,6 +104,8 @@ def init_cache(num_layers: int, batch: int, num_heads: int, capacity: int,
         v_scale=ones() if int8 or int4 else None,
         k_off=zeros() if int4 else None,
         v_off=zeros() if int4 else None,
+        page_min=pages(),
+        page_max=pages(),
     )
 
 

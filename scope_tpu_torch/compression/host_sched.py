@@ -13,11 +13,10 @@ sync.
 A copy of the JAX package's ``compression/host_sched.py``: the
 layer-uniform methods' mirror (:class:`HostScheduler`), without its
 lazy-eviction mirror (the physical fill pointer and the compaction
-schedule), which the port does not need (ROADMAP §1 item 11), and
+schedule), which the port does not need (ROADMAP §1 item 11),
 pyramidkv's per-layer mirror (:class:`LayeredHostScheduler`,
-:func:`pyramid_prefill_kept`).  Quest's (``QuestHostScheduler``) comes with
-Quest (ROADMAP §1 item 13): :func:`host_schedulable` answers for quest as
-the JAX package does, so its callers refuse it themselves.
+:func:`pyramid_prefill_kept`) and Quest's (:class:`QuestHostScheduler`),
+whose skip layers never compress and never advance the counters.
 """
 
 from __future__ import annotations
@@ -316,3 +315,82 @@ class LayeredHostScheduler:
     def length(self) -> int:
         """The longest layer's length (the hot step's length bucket)."""
         return max(self.lengths)
+
+
+class QuestHostScheduler(LayeredHostScheduler):
+    """Host mirror of Quest's decode-region gates
+    (``compression/quest.quest_decode_layer``).
+
+    The skip layers (``quest_skip_layers``) never compress and never
+    advance the shared counters, so a step makes only L - skip counter
+    increments: w_t grows more slowly than the other methods', and a jump
+    wave needs two steps to reach all L jump_layer increments (the second
+    step fires the first wave's layers again; the reference's
+    class-attribute arithmetic, reproduced exactly).  Per-layer lengths:
+    the skip layers' decode regions grow without bound; a fired layer
+    drops to prompt_len + n_keep + r.  Chunk planning and the length
+    bucket are :class:`LayeredHostScheduler`'s."""
+
+    def __init__(self, comp: CompressionConfig, num_layers: int,
+                 prompt_len: int, keep_cap: int):
+        self.comp = comp
+        self.L = num_layers
+        self.skip = comp.quest_skip_layers
+        self.prompt_len = prompt_len
+        self.lengths = [prompt_len] * num_layers
+        self.keep_cap = keep_cap
+        self.step_counter = 0
+        self.jump_step = 0
+        self.jump_layer = 0
+
+    def plan_step(self) -> LayeredStepPlan:
+        """Advance one decode step; each layer's gate sees its appended
+        decode-region length."""
+        comp = self.comp
+        m = comp.decoding_metric
+        W = comp.decoding_window_size
+        r = comp.decoding_recent_size
+        thresh = comp.delta * self.L
+        fire = [False] * self.L
+        n_keep = [0] * self.L
+        for l in range(self.L):
+            self.lengths[l] += 1
+            if m == "none" or l < self.skip:
+                continue
+            dk = self.lengths[l] - self.prompt_len
+            if m in ("linear", "jump"):
+                w_t = r + self.step_counter // thresh
+                self.step_counter += 1
+            else:                            # fixed
+                w_t = W
+            gate = dk >= w_t
+            if m == "jump":
+                counting = gate and self.jump_step < thresh
+                wave = gate and self.jump_step >= thresh
+                if counting:
+                    self.jump_step += 1
+                if wave:
+                    self.jump_layer += 1
+                if self.jump_layer >= self.L:
+                    self.jump_step = 0
+                    self.jump_layer = 0
+                f = gate and wave
+            else:
+                f = gate
+            if f:
+                nk = max(0, min(w_t - r, self.keep_cap))
+                nk = min(nk, max(dk - r, 0))
+                fire[l] = True
+                n_keep[l] = nk
+                self.lengths[l] = self.prompt_len + nk + r
+        return LayeredStepPlan(fire_any=any(fire), fire=fire, n_keep=n_keep)
+
+    @property
+    def dec_len(self) -> int:
+        """The longest decode region of the page-selecting layers (the
+        ``quest_dec_cap`` bucket; the skip layers attend densely, bounded
+        by the length bucket instead)."""
+        if self.L <= self.skip:
+            return 0
+        return max(self.lengths[l] - self.prompt_len
+                   for l in range(self.skip, self.L))

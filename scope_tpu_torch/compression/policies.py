@@ -6,7 +6,8 @@ then writes the compacted cache, as in the JAX package: H2O (cumulative
 attention), SnapKV (pooled observation-window scores), StreamingLLM
 (positional sinks + recent), PyramidKV (layer-decayed budgets over H2O
 scores), headwise (``compression/headwise.py``) and the no-eviction
-passthrough of fullkv/allkv.  Quest comes with ROADMAP §1 item 13.
+passthrough of fullkv, allkv and Quest (which selects pages at decode,
+``compression/quest.py``).
 
 Top-k ties are ordered as ``lax.top_k`` orders them: score descending,
 then index ascending (a stable descending sort), so the kept sets match
@@ -107,11 +108,7 @@ def compress_prefill(comp: CompressionConfig, layer_idx: int,
     head with group-summed scores (q keeps all query heads)."""
     B, H, S_pad, D = k.shape
     method = comp.method
-    if method == "quest":
-        raise NotImplementedError(
-            "prefill method 'quest' is not ported yet (ROADMAP §1 item 13, "
-            "Quest)")
-    if method in ("fullkv", "allkv"):
+    if method in ("fullkv", "allkv", "quest"):
         # No prefill eviction.
         return _passthrough(k, v, true_len, capacity)
     tl = true_len.to(device=k.device, dtype=torch.int32)

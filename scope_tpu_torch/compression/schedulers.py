@@ -271,3 +271,16 @@ def block_rewrite(comp: CompressionConfig, caps: DecodeCaps,
     return gather_block(comp, caps, probs, ck_l, cv_l, length, pseg, n_keep,
                         row_gate, positional)
 
+
+def write_block(buf: torch.Tensor, l: int, start: torch.Tensor,
+                blk: torch.Tensor) -> None:
+    """buf[l, b, :, start[b]:start[b]+W] = blk[b], each start clamped so
+    the block fits, as ``lax.dynamic_update_slice`` clamps it.  One
+    index_put at the device's offsets [B] serves uniform and per-row
+    offsets alike, with no host sync."""
+    B, H, W = blk.shape[:3]
+    dest = start.long().clamp(0, buf.shape[3] - W)[:, None, None] + \
+        torch.arange(W, device=blk.device)                        # [B, 1, W]
+    b_idx = torch.arange(B, device=blk.device)[:, None, None]
+    h_idx = torch.arange(H, device=blk.device)[None, :, None]
+    buf[l, b_idx, h_idx, dest] = blk

@@ -7,8 +7,8 @@
   timestamps (TTFT / TPOT), for one request at a time.  Like the JAX
   package's, it takes the host-scheduled decoder (``engine/host_loop.py``:
   no per-layer host sync) for every method and metric whose gates the host
-  can mirror, per layer for pyramidkv, and cond mode otherwise (headwise,
-  allkv with the h2o metric).
+  can mirror, per layer for pyramidkv and Quest, and cond mode otherwise
+  (headwise, allkv with the h2o metric).
 
 The two decode paths give identical tokens (tests/test_torch_host_sched.py).
 :func:`sample_logits` and :func:`sample_logits_rowwise` are the sampling

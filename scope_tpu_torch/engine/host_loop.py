@@ -9,7 +9,10 @@ keeping the host's count).  Fire-free stretches may run as one
 (tests/test_torch_host_sched.py, tests/test_torch_layered_host.py).
 PyramidKV's layers keep different prefill counts, so its mirror
 (``LayeredHostScheduler``) tracks every layer's length and a force step
-gets [L, B] gates: only the layers that fire rewrite.  The serving engine
+gets [L, B] gates: only the layers that fire rewrite.  Quest's mirror
+(``QuestHostScheduler``) is per layer too (its skip layers never fire), and
+its hot steps bound the decode-region view with a bucket ladder of their
+own (``dec_bucket_for``).  The serving engine
 (``engine/serving.py``) drives the same three programs (:meth:`step_off`,
 :meth:`step_force` with per-row gates, :meth:`step_chunk`) from per-slot
 mirrors.  The JAX package's lazy eviction and its host-run compaction are
@@ -30,6 +33,7 @@ import torch
 from scope_tpu_torch.cache import KVCache
 from scope_tpu_torch.compression.host_sched import (HostScheduler,
                                                     LayeredHostScheduler,
+                                                    QuestHostScheduler,
                                                     host_schedulable,
                                                     host_schedulable_layered)
 from scope_tpu_torch.compression.schedulers import SchedState
@@ -44,8 +48,9 @@ class HostScheduledDecoder:
 
     def __init__(self, spec: ModelSpec, comp: CompressionConfig,
                  ecfg: EngineConfig):
-        llama._check_supported(spec, comp)     # quest among them
+        llama._check_supported(spec, comp)
         self.layered = host_schedulable_layered(comp)
+        self.quest = comp.method == "quest"
         if not (host_schedulable(comp) or self.layered):
             raise ValueError(
                 f"{comp.method}+{comp.decoding_metric} needs the device "
@@ -57,24 +62,35 @@ class HostScheduledDecoder:
         # Length buckets: hot steps attend over the smallest bucket that
         # covers the cache length, so a cache far below capacity (a short
         # prompt, or fullkv early on) does not pay full-capacity attention.
-        buckets, b = [], 512
-        while b < self.capacity:
-            buckets.append(b)
-            b *= 2
-        buckets.append(self.capacity)
-        self.buckets = tuple(buckets)
+        self.buckets = _ladder(self.capacity)
+        # Quest's decode region grows from 0 toward max_new_tokens: its own
+        # ladder, so early steps attend a small slice of it.
+        self.dec_buckets = _ladder(ecfg.max_new_tokens + 1)
 
     def bucket_for(self, needed: int) -> int:
         """The slots a hot step attends over when the cache holds
         ``needed``."""
-        for b in self.buckets:
-            if needed <= b:
-                return b
-        return self.capacity
+        return _fit(self.buckets, needed)
+
+    def dec_bucket_for(self, needed: int) -> Optional[int]:
+        """Quest's decode-region view when the longest region holds
+        ``needed`` tokens (None for other methods).  With
+        ``quest_decode_pages`` attention reads the selected pages whatever
+        the region's length, so one bucket serves every step."""
+        if not self.quest:
+            return None
+        if self.comp.quest_decode_pages > 0:
+            return self.dec_buckets[0]
+        return _fit(self.dec_buckets, needed)
+
+    def _dec_bucket(self, sched, ahead: int = 0) -> Optional[int]:
+        return (self.dec_bucket_for(sched.dec_len + ahead) if self.quest
+                else None)
 
     def new_scheduler(self, prompt_len: int,
                       prompt_pad: Optional[int] = None
-                      ) -> Union[HostScheduler, LayeredHostScheduler]:
+                      ) -> Union[HostScheduler, LayeredHostScheduler,
+                                 QuestHostScheduler]:
         """A mirror for one request of ``prompt_len`` tokens, padded to
         ``prompt_pad`` (default: its bucket), which decides whether
         pyramidkv's prefill compressed."""
@@ -85,6 +101,9 @@ class HostScheduledDecoder:
             return LayeredHostScheduler(comp, self.spec.num_layers,
                                         prompt_len, pad, self._keep_cap,
                                         self.capacity)
+        if self.quest:
+            return QuestHostScheduler(comp, self.spec.num_layers,
+                                      prompt_len, self._keep_cap)
         if comp.method in ("fullkv", "allkv"):
             kept = prompt_len
         else:
@@ -93,13 +112,15 @@ class HostScheduledDecoder:
                              self._keep_cap, capacity=self.capacity)
 
     def step_off(self, params, tok: torch.Tensor, vpos: torch.Tensor,
-                 cache: KVCache, state: SchedState, attn_cap: int
+                 cache: KVCache, state: SchedState, attn_cap: int,
+                 dec_cap: Optional[int] = None
                  ) -> Tuple[torch.Tensor, KVCache, SchedState]:
         """The hot step: append and attend over the first ``attn_cap``
-        slots, no compression.  Returns (logits [B, V], cache, state)."""
+        slots (Quest: its dense layers; its decode region over ``dec_cap``),
+        no compression.  Returns (logits [B, V], cache, state)."""
         return llama.decode_step(self.spec, self.comp, self.ecfg, params,
                                  tok, vpos, cache, state, compress_mode="off",
-                                 attn_cap=attn_cap)
+                                 attn_cap=attn_cap, quest_dec_cap=dec_cap)
 
     def step_force(self, params, tok: torch.Tensor, vpos: torch.Tensor,
                    cache: KVCache, state: SchedState, n_keep, row_gate=None
@@ -118,34 +139,38 @@ class HostScheduledDecoder:
                                  force_row_gate=row_gate)
 
     def step_chunk(self, params, tok: torch.Tensor, vpos: torch.Tensor,
-                   cache: KVCache, state: SchedState, n: int, attn_cap: int
+                   cache: KVCache, state: SchedState, n: int, attn_cap: int,
+                   dec_cap: Optional[int] = None
                    ) -> Tuple[torch.Tensor, KVCache, SchedState]:
-        """``n`` greedy hot steps over the first ``attn_cap`` slots, the
-        tokens kept on the device.  Returns (tokens [B, n], cache, state)."""
+        """``n`` greedy hot steps over the first ``attn_cap`` slots (and
+        Quest's ``dec_cap``), the tokens kept on the device.  Returns
+        (tokens [B, n], cache, state)."""
         return llama.decode_steps(self.spec, self.comp, self.ecfg, params,
                                   tok, vpos, cache, state, n_steps=n,
-                                  attn_cap=attn_cap)
+                                  attn_cap=attn_cap, quest_dec_cap=dec_cap)
 
     def step(self, sched, params, tok: torch.Tensor, vpos: torch.Tensor,
              cache: KVCache, state: SchedState
              ) -> Tuple[torch.Tensor, KVCache, SchedState]:
         """One decode step: the force step where the mirror fires (on the
-        firing layers only, for a layered mirror), else the hot step at the
-        bucket of the longest layer.  Returns (logits [B, V], cache,
-        state)."""
+        firing layers only, for a layered or Quest mirror), else the hot
+        step at the bucket of the longest layer.  Returns (logits [B, V],
+        cache, state)."""
         plan = sched.plan_step()
         B = tok.shape[0]
-        if self.layered and plan.fire_any:
+        per_layer = self.layered or self.quest
+        if per_layer and plan.fire_any:
             gate = np.repeat(np.asarray(plan.fire, bool)[:, None], B, axis=1)
             n_keep = np.repeat(np.asarray(plan.n_keep, np.int32)[:, None], B,
                                axis=1)
             return self.step_force(params, tok, vpos, cache, state, n_keep,
                                    gate)
-        if not self.layered and plan.fire:
+        if not per_layer and plan.fire:
             return self.step_force(params, tok, vpos, cache, state,
                                    np.full((B,), plan.n_keep, np.int32))
         return self.step_off(params, tok, vpos, cache, state,
-                             self.bucket_for(sched.length))
+                             self.bucket_for(sched.length),
+                             self._dec_bucket(sched))
 
     def step_auto(self, sched, params, tok: torch.Tensor,
                   vpos: torch.Tensor, cache: KVCache, state: SchedState
@@ -163,13 +188,28 @@ class HostScheduledDecoder:
                 if n <= run:
                     toks, cache, state = self.step_chunk(
                         params, tok, vpos, cache, state, n,
-                        self.bucket_for(sched.length + n))
+                        self.bucket_for(sched.length + n),
+                        self._dec_bucket(sched, n))
                     sched.advance_hot(n)
                     return toks, cache, state
         logits, cache, state = self.step(sched, params, tok, vpos, cache,
                                          state)
         return (torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache,
                 state)
+
+
+def _ladder(top: int) -> Tuple[int, ...]:
+    """Buckets 512, 1024, ... below ``top``, then ``top``."""
+    out, b = [], 512
+    while b < top:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (top,)
+
+
+def _fit(buckets: Tuple[int, ...], needed: int) -> int:
+    """The smallest bucket that holds ``needed`` (the last if none does)."""
+    return next((b for b in buckets if needed <= b), buckets[-1])
 
 
 def _to_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -233,8 +273,8 @@ def host_generate(spec: ModelSpec, comp: CompressionConfig,
         "tpot_s": [timestamps[i] - (timestamps[i - 1] if i else t0)
                    for i in range(len(timestamps))],
         "mirror_length": sched.length,
-        "mirror_lengths": (list(sched.lengths) if dec.layered
-                           else [sched.length] * spec.num_layers),
+        "mirror_lengths": list(getattr(sched, "lengths",
+                                       [sched.length] * spec.num_layers)),
         "cache_length": cache.length[:, 0].tolist(),
         "decode_steps": s,
     }

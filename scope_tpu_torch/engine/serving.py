@@ -9,18 +9,26 @@ written into the pool, and all slots decode together, one batched step per
 engine step.
 
 Compression, two ways.  Where the host can mirror the gates
-(``host_sched.host_schedulable``: fullkv, allkv, h2o, snapkv, streamingllm
-and their method metrics), every slot has its own host mirror
-(``compression/host_sched.HostScheduler``), so each request fires on its
-own length and counters, as it would alone.  A step where some slot fires
-is a force step whose per-row gate holds exactly the firing slots; any
-other step is the hot step at the length bucket of the longest live slot
-(or a multi-step chunk of them when every slot is fire-free).  Elsewhere
-(pyramidkv, whose lengths differ per layer, and headwise) every step runs
-``decode_step``'s cond mode over the pool, the device's gates with per-row
-``SchedState`` counters (linear / jump), reset at each admission.  Idle
-slots decode too; their tokens are dropped and their row is rewritten at
-the next admission.
+(``host_sched.host_schedulable``: fullkv, allkv, h2o, snapkv, streamingllm,
+Quest and their method metrics), every slot has its own host mirror
+(``compression/host_sched.HostScheduler``, or ``QuestHostScheduler`` per
+layer), so each request fires on its own length and counters, as it would
+alone.  A step where some slot fires is a force step whose per-row gate
+holds exactly the firing slots ([L, B] for Quest: only the firing layers
+of those slots); any other step is the hot step at the length bucket of
+the longest live slot, and Quest's decode-region bucket of the longest
+region (or a multi-step chunk of them when every slot is fire-free).
+Elsewhere (pyramidkv, whose lengths differ per layer, and headwise) every
+step runs ``decode_step``'s cond mode over the pool, the device's gates
+with per-row ``SchedState`` counters (linear / jump), reset at each
+admission.  Idle slots decode too; their tokens are dropped and their row
+is rewritten at the next admission.
+
+Chunked admission (``prefill_chunk=C``): an admitted prompt is
+prefilled by ``models/chunked_prefill.ChunkedPrefiller``, one C-token
+chunk per engine step, oldest admission first, so a long prompt delays
+the running requests' decode by one chunk per step instead of a whole
+prefill.  Its row joins the pool when its finalize pass has run.
 
 Token fetches are pipelined: each dispatch starts a non-blocking copy of
 its tokens to pinned host memory and records an event, and the host reads
@@ -29,10 +37,9 @@ the read overlaps the device's work.  EOS and budget detection lag by as
 many dispatches; results are identical at every depth.
 
 A port of the JAX package's ``engine/serving.py``.  Not ported yet, and
-refused with the ROADMAP item that brings them: chunked admission
-(``prefill_chunk``) and Quest (item 13), the sliding window and qkv bias
-(item 13, Mistral and Qwen2) and meshes (item 15).  The staging ring and
-lazy eviction are left out on purpose (items 9 and 11).
+refused with the ROADMAP item that brings them: the sliding window and
+qkv bias (item 13, Mistral and Qwen2) and meshes (item 15).  The staging
+ring and lazy eviction are left out on purpose (items 9 and 11).
 """
 
 from __future__ import annotations
@@ -56,10 +63,13 @@ from scope_tpu_torch.device import resolve_device
 from scope_tpu_torch.engine.generate import sample_logits_rowwise
 from scope_tpu_torch.engine.host_loop import HostScheduledDecoder
 from scope_tpu_torch.models import llama
+from scope_tpu_torch.models.chunked_prefill import ChunkedPrefiller
 from scope_tpu_torch.native import SlotScheduler
 
 _CACHE_FIELDS = ("k", "v", "length", "pvalid", "prompt_len", "k_scale",
-                 "v_scale", "k_off", "v_off")
+                 "v_scale", "k_off", "v_off", "page_min", "page_max")
+# The cache fields a B = 1 prefill row carries into its pool slot.
+_ROW_FIELDS = tuple(n for n in _CACHE_FIELDS if n != "prompt_len")
 
 
 @dataclass
@@ -93,11 +103,6 @@ class ServingEngine:
             raise ValueError(
                 f"serving does not support method={comp.method!r} with "
                 f"decoding_metric={comp.decoding_metric!r}")
-        if prefill_chunk is not None:
-            raise NotImplementedError(
-                "chunked admission (prefill_chunk) comes with "
-                "models/chunked_prefill.py (ROADMAP §1 item 13, chunked "
-                "prefill)")
         if mesh is not None:
             raise NotImplementedError(
                 "distributed serving comes with parallel/ (ROADMAP §1 item "
@@ -117,7 +122,14 @@ class ServingEngine:
         self._host_mode = host_schedulable(comp)
         self._hdec = (HostScheduledDecoder(spec, comp, ecfg)
                       if self._host_mode else None)
+        self._quest = comp.method == "quest"
         self._slot_scheds: List[Optional[HostScheduler]] = [None] * max_slots
+        # Chunked admission: admitted prompts waiting for their prefill,
+        # oldest first, each advanced one chunk per engine step.
+        self._chunker = (ChunkedPrefiller(spec, comp, ecfg,
+                                          chunk_size=prefill_chunk)
+                         if prefill_chunk is not None else None)
+        self._pending_prefills: List[dict] = []
         st = llama.derive_statics(spec, comp, ecfg)
         self.cache: KVCache = init_cache(
             spec.num_layers, max_slots, st.cache_heads, st.capacity,
@@ -126,7 +138,9 @@ class ServingEngine:
             # Headwise's reserved prefill segment: the pool carries the
             # gap each admission's prefill cache has.
             prefill_gap=(comp.headwise_max_budget
-                         if comp.method == "headwise" else 0))
+                         if comp.method == "headwise" else 0),
+            num_pages=(st.capacity // comp.chunk_size if self._quest
+                       else 0))
         # Per-slot counters: each slot an independent linear / jump stream
         # (read by the device-cond path; host-scheduled decode reads none).
         self._per_row_state = comp.decoding_metric in ("linear", "jump")
@@ -210,10 +224,9 @@ class ServingEngine:
     def _insert_row(self, slot: int, row: KVCache, tok0: int,
                     prompt_len: int):
         """Write a B = 1 prefill cache into the pool's row ``slot``, in
-        place: K/V, lengths, pvalid, scales and offsets."""
+        place: K/V, lengths, pvalid, scales, offsets and Quest's pages."""
         c = self.cache
-        for name in ("k", "v", "length", "pvalid", "k_scale", "v_scale",
-                     "k_off", "v_off"):
+        for name in _ROW_FIELDS:
             dst = getattr(c, name)
             if dst is not None:
                 dst[:, slot] = getattr(row, name)[:, 0]
@@ -236,17 +249,44 @@ class ServingEngine:
             # counts toward TTFT, not queueing.
             self._admit_ts[rid] = time.perf_counter()
             ids = self._pending_prompts.pop(rid)
-            toks = np.zeros((1, self.ecfg.bucket_for(len(ids))), np.int32)
-            toks[0, :len(ids)] = ids
-            logits, row, _ = llama.prefill(
-                self.spec, self.comp, self.ecfg, self.params,
-                torch.from_numpy(toks).to(self.device),
-                torch.tensor([len(ids)], dtype=torch.int32,
-                             device=self.device))
+            if self._chunker is not None:
+                self._pending_prefills.append(
+                    {"slot": slot, "rid": rid, "prompt_len": prompt_len,
+                     "max_new": max_new, "ids": ids})
+                admitted = True
+                continue
+            logits, row, _ = llama.prefill(self.spec, self.comp, self.ecfg,
+                                           self.params, *self._prompt(ids))
             tok0 = self._first_token(logits, rid, len(ids))
             self._start_slot(slot, row, tok0, rid, prompt_len, max_new,
                              len(ids))
             admitted = True
+
+    def _prompt(self, ids: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tokens [1, bucket], true_len [1]) on the device."""
+        toks = np.zeros((1, self.ecfg.bucket_for(len(ids))), np.int32)
+        toks[0, :len(ids)] = ids
+        return (torch.from_numpy(toks).to(self.device),
+                torch.tensor([len(ids)], dtype=torch.int32,
+                             device=self.device))
+
+    def _advance_prefill(self) -> bool:
+        """Run one chunk of the oldest pending admission, starting its
+        prefill (and its staging buffers) at its first chunk; its row joins
+        the pool once its prefill is done.  Returns whether a chunk ran."""
+        if not self._pending_prefills:
+            return False
+        p = self._pending_prefills[0]
+        if "st" not in p:
+            p["st"] = self._chunker.start(*self._prompt(p["ids"]))
+        if not self._chunker.advance(self.params, p["st"]):
+            logits, row, _ = self._chunker.finish(self.params, p["st"])
+            n_ids = len(p["ids"])
+            tok0 = self._first_token(logits, p["rid"], n_ids)
+            self._pending_prefills.pop(0)
+            self._start_slot(p["slot"], row, tok0, p["rid"],
+                             p["prompt_len"], p["max_new"], n_ids)
+        return True
 
     def _start_slot(self, slot, row, tok0, rid, prompt_len, max_new, n_ids):
         self._insert_row(slot, row, tok0, n_ids)
@@ -288,23 +328,32 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _host_decode(self, tok: torch.Tensor, vpos: torch.Tensor):
         """One step from the per-slot mirrors: the force step gated to the
-        firing slots, or the hot step at the longest live slot's bucket."""
-        n_keep = np.zeros(self.max_slots, np.int32)
-        gate = np.zeros(self.max_slots, bool)
-        needed = 1
+        firing slots ([L, B] for Quest, whose plans fire per layer), or the
+        hot step at the longest live slot's bucket."""
+        shape = ((self.spec.num_layers, self.max_slots) if self._quest
+                 else (self.max_slots,))
+        n_keep = np.zeros(shape, np.int32)
+        gate = np.zeros(shape, bool)
+        needed = dec_needed = 1
         for slot, s in enumerate(self.slots):
             if not s.active:
                 continue
-            plan = self._slot_scheds[slot].plan_step()
-            if plan.fire:
+            sched = self._slot_scheds[slot]
+            plan = sched.plan_step()
+            if self._quest:
+                gate[:, slot] = plan.fire
+                n_keep[:, slot] = plan.n_keep
+                dec_needed = max(dec_needed, sched.dec_len)
+            elif plan.fire:
                 gate[slot] = True
                 n_keep[slot] = plan.n_keep
-            needed = max(needed, self._slot_scheds[slot].length)
+            needed = max(needed, sched.length)
         if gate.any():
             return self._hdec.step_force(self.params, tok, vpos, self.cache,
                                          self.state, n_keep, gate)
         return self._hdec.step_off(self.params, tok, vpos, self.cache,
-                                   self.state, self._hdec.bucket_for(needed))
+                                   self.state, self._hdec.bucket_for(needed),
+                                   self._hdec.dec_bucket_for(dec_needed))
 
     def _cond_decode(self, tok: torch.Tensor, vpos: torch.Tensor):
         """One step of ``decode_step``'s cond mode over the pool: the
@@ -320,12 +369,12 @@ class ServingEngine:
         """The largest chunk size n such that every active slot is fire-free
         for the next n steps and none reaches its budget inside them; 0 =
         one step.  No chunks on the device-cond path, while admissions wait
-        (a chunk would delay them) or while a row samples (chunks decode
-        greedily)."""
+        or prefill (a chunk would delay them) or while a row samples
+        (chunks decode greedily)."""
         sizes = sorted((n for n in self.ecfg.decode_chunk_sizes if n > 1),
                        reverse=True)
         if (not self._host_mode or not sizes or self.sched.queued > 0
-                or np.any(self._samp_t > 0.0)):
+                or self._pending_prefills or np.any(self._samp_t > 0.0)):
             return 0
         live = [i for i, s in enumerate(self.slots) if s.active]
         run = min(self._slot_scheds[i].hot_run_length(sizes[0])
@@ -346,9 +395,12 @@ class ServingEngine:
         n = self._plan_chunk()
         if n:
             needed = max(self._slot_scheds[i].length + n for i in live)
+            dec_cap = (self._hdec.dec_bucket_for(max(
+                self._slot_scheds[i].dec_len + n for i in live))
+                if self._quest else None)
             toks_dev, self.cache, self.state = self._hdec.step_chunk(
                 self.params, tok, vpos, self.cache, self.state, n,
-                self._hdec.bucket_for(needed))
+                self._hdec.bucket_for(needed), dec_cap)
             for i in live:
                 self._slot_scheds[i].advance_hot(n)
         else:
@@ -402,16 +454,18 @@ class ServingEngine:
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """Admit what fits, dispatch one batched decode step (or one hot
+        """Admit what fits, run one chunk of a pending admission's prefill
+        (chunked admission), dispatch one batched decode step (or one hot
         chunk, ``ecfg.decode_chunk_sizes``, when every slot is fire-free),
         then apply the dispatches older than ``pipeline_depth``.  Returns
         whether anything was done."""
         self._admit()
+        prefilled = self._advance_prefill()
         if not any(s.active for s in self.slots):
             drained = False
             while self._inflight:
                 drained = self._process_one() or drained
-            return drained
+            return prefilled or drained
         self._dispatch()
         while len(self._inflight) > self.pipeline_depth:
             self._process_one()
@@ -449,6 +503,11 @@ class ServingEngine:
             "pending_prompts": {k: v.copy()
                                 for k, v in self._pending_prompts.items()},
             "max_top_k": self.max_top_k,
+            # Admissions waiting for (or in) their chunked prefill; one
+            # under way restarts from its first chunk.
+            "pending_prefills": [
+                {k: (v.copy() if k == "ids" else v) for k, v in p.items()
+                 if k != "st"} for p in self._pending_prefills],
             # Latency bookkeeping travels too: a replayed finish must not
             # recompute totals from a missing submit time.
             "request_metrics": copy.deepcopy(self.request_metrics),
@@ -479,6 +538,9 @@ class ServingEngine:
         self._pending_prompts = {k: v.copy()
                                  for k, v in snap["pending_prompts"].items()}
         self.max_top_k = snap["max_top_k"]
+        self._pending_prefills = [
+            {k: (v.copy() if k == "ids" else v) for k, v in p.items()}
+            for p in snap["pending_prefills"]]
         self.request_metrics = copy.deepcopy(snap["request_metrics"])
         self._submit_ts = dict(snap["submit_ts"])
         self._admit_ts = dict(snap["admit_ts"])

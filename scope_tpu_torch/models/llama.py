@@ -3,9 +3,11 @@
 The port of the JAX package's ``models/llama.py``: ``prefill`` (every
 layer: fused qkv + RoPE, GQA expansion, prefill attention with eviction
 score capture through the Hopper kernels, output projection + MLP, then
-prefill compression by any method but Quest), ``decode_step`` (per layer:
-append the token, attend, then compress as ``compress_mode`` says) and
-``decode_steps`` (n hot steps with the token kept on the device).
+prefill compression; Quest's page metadata after the last layer),
+``decode_step`` (per layer: append the token, attend, then compress as
+``compress_mode`` says; Quest attends its selected pages,
+``compression/quest.py``) and ``decode_steps`` (n hot steps with the
+token kept on the device).
 
 Semantics kept from the reference forward:
 - RoPE is applied before caching; evicted caches keep original phases.
@@ -34,12 +36,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from scope_tpu_torch.cache import KVCache, init_cache, slot_mask
+from scope_tpu_torch.compression import quest
 from scope_tpu_torch.compression.policies import compress_prefill
 from scope_tpu_torch.compression.schedulers import (DecodeCaps, SchedState,
                                                     block_rewrite, force_pseg,
                                                     gather_block,
                                                     schedule_decision,
-                                                    static_keep_cap)
+                                                    static_keep_cap,
+                                                    write_block)
 from scope_tpu_torch.config import CompressionConfig, EngineConfig, ModelSpec
 from scope_tpu_torch.device import resolve_device
 from scope_tpu_torch.ops.attention import (NEG_INF, decode_attention,
@@ -67,10 +71,6 @@ def _check_supported(spec: ModelSpec, comp: CompressionConfig) -> None:
             f"{spec.arch} features (sliding window, mistral_window_parity, "
             f"qkv bias) are not ported yet (ROADMAP §1 item 13, Mistral and "
             f"Qwen2)")
-    if comp.method == "quest":
-        raise NotImplementedError(
-            "prefill method 'quest' is not ported yet (ROADMAP §1 item 13, "
-            "Quest)")
 
 
 # --------------------------------------------------------------------------
@@ -249,20 +249,11 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
             sc = scores._replace(
                 colsum_all=_group_scores(scores.colsum_all, G),
                 colsum_window=_group_scores(scores.colsum_window, G))
-        res = compress_prefill(comp, l, L, ck, cv, q, sc, tl, st.capacity)
-        # int8 / int4: calibrate and quantize this layer before it is
-        # stored, so no full-precision cache of all layers is ever held.
-        ck, cv, ks, vs, ko, vo = quant.quantize_prefill_layer(
-            ecfg.kv_dtype, res.cache_k, res.cache_v, res.length, res.pvalid,
-            cache.prefill_gap)
-        cache.k[l] = ck
-        cache.v[l] = cv
-        cache.length[l] = res.length
-        cache.pvalid[l] = res.pvalid
-        for buf, val in ((cache.k_scale, ks), (cache.v_scale, vs),
-                         (cache.k_off, ko), (cache.v_off, vo)):
-            if buf is not None:
-                buf[l] = val
+        store_prefill_layer(ecfg, cache, l, compress_prefill(
+            comp, l, L, ck, cv, q, sc, tl, st.capacity))
+
+    if comp.method == "quest":
+        cache = quest.build_page_metadata(comp, cache, tl)
 
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     # Logits at the last real token of each row.
@@ -270,6 +261,24 @@ def prefill(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     h_last = x[torch.arange(B, device=dev), last]
     logits = _lm_logits(spec, params, h_last)
     return logits, cache, SchedState.init(dev)
+
+
+def store_prefill_layer(ecfg: EngineConfig, cache: KVCache, l: int,
+                        res) -> None:
+    """Write layer l's compressed prefill (a ``PrefillResult``) into the
+    cache.  int8 / int4: calibrate and quantize this layer before it is
+    stored, so no full-precision cache of all layers is ever held."""
+    ck, cv, ks, vs, ko, vo = quant.quantize_prefill_layer(
+        ecfg.kv_dtype, res.cache_k, res.cache_v, res.length, res.pvalid,
+        cache.prefill_gap)
+    cache.k[l] = ck
+    cache.v[l] = cv
+    cache.length[l] = res.length
+    cache.pvalid[l] = res.pvalid
+    for buf, val in ((cache.k_scale, ks), (cache.v_scale, vs),
+                     (cache.k_off, ko), (cache.v_off, vo)):
+        if buf is not None:
+            buf[l] = val
 
 
 # --------------------------------------------------------------------------
@@ -302,18 +311,13 @@ def _grouped_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                                       else None)
 
 
-def _write_block(buf: torch.Tensor, l: int, start: torch.Tensor,
-                 blk: torch.Tensor) -> None:
-    """buf[l, b, :, start[b]:start[b]+W] = blk[b], each start clamped so
-    the block fits, as ``lax.dynamic_update_slice`` clamps it.  One
-    index_put at the device's offsets [B] serves uniform and per-row
-    offsets alike, with no host sync."""
-    B, H, W = blk.shape[:3]
-    dest = start.long().clamp(0, buf.shape[3] - W)[:, None, None] + \
-        torch.arange(W, device=blk.device)                        # [B, 1, W]
-    b_idx = torch.arange(B, device=blk.device)[:, None, None]
-    h_idx = torch.arange(H, device=blk.device)[None, :, None]
-    buf[l, b_idx, h_idx, dest] = blk
+def _layer_tail(spec: ModelSpec, p, x: torch.Tensor, out: torch.Tensor
+                ) -> torch.Tensor:
+    """A decode layer's output projection, residual and MLP block: out
+    [B, Hq, 1, D] -> the next layer's input [B, 1, E]."""
+    B = out.shape[0]
+    x = x + wdot(out.transpose(1, 2).reshape(B, 1, -1), p, "wo")
+    return x + mlp(rms_norm(x, p["ln_mlp"], spec.rms_norm_eps), p)
 
 
 COMPRESS_MODES = ("cond", "off", "force")
@@ -326,7 +330,8 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
                 compress_mode: str = "cond",
                 force_n_keep: Optional[torch.Tensor] = None,
                 force_row_gate: Optional[torch.Tensor] = None,
-                attn_cap: Optional[int] = None
+                attn_cap: Optional[int] = None,
+                quest_dec_cap: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache, SchedState]:
     """One decode step.  token: [B] (the token being fed); vpos: [B] its
     virtual position (true_len + step).  Returns (next-token logits [B, V],
@@ -348,6 +353,11 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
     "off" and "force" are the host-scheduled decode of
     ``engine/host_loop.py`` and ``engine/serving.py``.
 
+    Quest (``compression/quest.py``) attends its selected prompt pages and
+    the decode region, whose view ``quest_dec_cap`` bounds (a host bucket;
+    None = max_new_tokens + 1); ``attn_cap`` bounds its dense layers' view.
+    Its rewrite is at each row's prompt_len.
+
     With an int8 / int4 cache the token is quantized with its row's
     prefill-calibrated scales before it is stored, the K scale is folded
     into q and the V scale (and int4's V offset) into the attention output.
@@ -366,7 +376,7 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         st = st._replace(caps=st.caps._replace(capacity=attn_cap))
     B = token.shape[0]
     L = spec.num_layers
-    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    D = spec.head_dim
     Hc = st.cache_heads
     G = spec.num_kv_groups
     cap = attn_cap or cache.capacity       # the slots attention reads
@@ -387,6 +397,8 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         keeps = force_n_keep.to(device=dev, dtype=torch.int32)
     int4 = ecfg.kv_dtype == "int4"
     quantized = int4 or ecfg.kv_dtype == "int8"
+    dec_cap = min(quest_dec_cap or ecfg.max_new_tokens + 1,
+                  ecfg.max_new_tokens + 1)
 
     for l in range(L):
         p = _layer(params, l)
@@ -415,6 +427,24 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
         length = length + 1
         cache.length[l] = length
 
+        if comp.method == "quest":
+            fg = fk = None
+            if compress_mode == "force" and need_probs:
+                fg = gates[l] if gates.dim() == 2 else gates
+                fk = keeps[l] if keeps.dim() == 2 else keeps
+            out, state = quest.quest_decode_layer(
+                comp, st.caps, state, q, cache, l, L, dec_cap=dec_cap,
+                groups=1 if comp.evict_per_qhead else G,
+                compress_mode=compress_mode, force_row_gate=fg,
+                force_n_keep=fk, tot_cap=attn_cap or 0)
+            if comp.quest_decode_pages > 0:
+                quest.update_decode_page_metadata(comp, cache, l)
+            if quantized:
+                out = quant.fold_out_scale(out, vs_l,
+                                           cache.v_off[l] if int4 else None)
+            x = _layer_tail(spec, p, x, out)
+            continue
+
         ck_l, cv_l = cache.k[l, :, :, :cap], cache.v[l, :, :, :cap]
         mask = slot_mask(length, cache.pvalid[l], cache.prefill_gap, cap)
         if comp.evict_per_qhead:
@@ -432,8 +462,8 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
             kblk, vblk, new_len = gather_block(
                 comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
                 row_gate, positional)
-            _write_block(cache.k, l, pseg, kblk)
-            _write_block(cache.v, l, pseg, vblk)
+            write_block(cache.k, l, pseg, kblk)
+            write_block(cache.v, l, pseg, vblk)
             cache.length[l] = new_len
         elif need_probs:                                 # cond
             row_gate, n_keep, pseg, positional, state = schedule_decision(
@@ -442,14 +472,11 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
                 comp, st.caps, probs, ck_l, cv_l, length, pseg, n_keep,
                 row_gate, positional)
             if kblk is not None:
-                _write_block(cache.k, l, pseg, kblk)
-                _write_block(cache.v, l, pseg, vblk)
+                write_block(cache.k, l, pseg, kblk)
+                write_block(cache.v, l, pseg, vblk)
                 cache.length[l] = new_len
 
-        out = out.transpose(1, 2).reshape(B, 1, Hq * D)
-        x = x + wdot(out, p, "wo")
-        h2 = rms_norm(x, p["ln_mlp"], spec.rms_norm_eps)
-        x = x + mlp(h2, p)
+        x = _layer_tail(spec, p, x, out)
 
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     logits = _lm_logits(spec, params, x[:, 0])
@@ -460,21 +487,24 @@ def decode_step(spec: ModelSpec, comp: CompressionConfig, ecfg: EngineConfig,
 def decode_steps(spec: ModelSpec, comp: CompressionConfig,
                  ecfg: EngineConfig, params: Params, token: torch.Tensor,
                  vpos: torch.Tensor, cache: KVCache, state: SchedState,
-                 n_steps: int, attn_cap: Optional[int] = None
+                 n_steps: int, attn_cap: Optional[int] = None,
+                 quest_dec_cap: Optional[int] = None
                  ) -> Tuple[torch.Tensor, KVCache, SchedState]:
     """``n_steps`` greedy hot steps (``compress_mode="off"``), each
     step's token kept on the device as the next step's input.  Only valid
     where no compression fires; the host plans such stretches
-    (``HostScheduler.hot_run_length``).  Returns (tokens [B, n_steps] int32,
-    the last one the next step's input, cache, state).  The JAX package's
-    in-chunk staging ring is not ported: it dodges a TPU buffer copy that
-    in-place writes do not make here."""
+    (``HostScheduler.hot_run_length``); ``attn_cap`` and
+    ``quest_dec_cap`` are :func:`decode_step`'s.  Returns (tokens
+    [B, n_steps] int32, the last one the next step's input, cache, state).
+    The JAX package's in-chunk staging ring is not ported: it dodges a TPU
+    buffer copy that in-place writes do not make here."""
     vpos = vpos.to(params["embed"].device)
     toks = []
     for i in range(n_steps):
         logits, cache, state = decode_step(
             spec, comp, ecfg, params, token, vpos + i, cache, state,
-            compress_mode="off", attn_cap=attn_cap)
+            compress_mode="off", attn_cap=attn_cap,
+            quest_dec_cap=quest_dec_cap)
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(token)
     return torch.stack(toks, dim=1), cache, state

@@ -3,7 +3,8 @@ and masked decode attention over the static slotted cache.
 
 Prefill reaches the two hand-written Hopper kernels of
 :mod:`scope_tpu_torch.ops.flash_prefill` for CUDA tensors (their plain
-versions for CPU tensors).  SnapKV's observation-window scores
+versions for CPU tensors), and so does :func:`prefill_scores_only`, the
+scores of chunked prefill's finalize pass.  SnapKV's observation-window scores
 (:func:`_window_colsum`), their pooling (:func:`pool_scores`) and decode
 attention are plain torch ops, as they are XLA ops in the JAX package;
 decode attention's probabilities double as the decode eviction scores.
@@ -64,6 +65,67 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        1.0 / math.sqrt(q.shape[-1]))
     return out, PrefillScores(colsum_all=colsum_all,
                               colsum_window=colsum_window)
+
+
+def prefill_scores_only(q: torch.Tensor, k: torch.Tensor,
+                        true_len: torch.Tensor, *, window_size: int,
+                        need_colsum_all: bool = False,
+                        need_colsum_window: bool = False,
+                        q_block: int = 256) -> PrefillScores:
+    """The eviction scores of :func:`prefill_attention` without its output:
+    chunked prefill's finalize pass, where every key exists.  The scoring
+    softmax lets earlier queries see later keys (the reference's quirk), so
+    it cannot run chunk by chunk.  q, k: [B, H, S, D] roped.
+
+    CUDA tensors: ``colsum_all`` from the scored ``flash_prefill`` (its
+    attention output, over V = K, is discarded) and ``colsum_scores``, the
+    monolithic prefill's scoring pair.  CPU tensors: the JAX package's
+    blocked form (``q_block`` query rows at a time, a float32 softmax per
+    block, block sums added in order).  SnapKV's ``colsum_window`` is
+    :func:`_window_colsum` on both."""
+    B, H, S, D = q.shape
+    w = window_size
+    scale = 1.0 / math.sqrt(D)
+    colsum_all = colsum_window = None
+    if need_colsum_all and q.device.type == "cpu":
+        colsum_all = _blocked_colsum(q, k, true_len, w, scale, q_block)
+    elif need_colsum_all:
+        q, k = q.contiguous(), k.contiguous()
+        _, m2, l2 = flash_prefill(q, k, k, true_len, window_size=w,
+                                  need_scores=True)
+        colsum_all = colsum_scores(q, k, true_len, m2, l2, window_size=w)
+    if need_colsum_window:
+        colsum_window = _window_colsum(q, k, true_len, w, scale)
+    return PrefillScores(colsum_all=colsum_all, colsum_window=colsum_window)
+
+
+def _blocked_colsum(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor,
+                    w: int, scale: float, q_block: int) -> torch.Tensor:
+    """H2O column sums, ``q_block`` query rows at a time, as the JAX
+    package's ``prefill_scores_only`` sums them: [B, H, S] float32."""
+    B, H, S, D = q.shape
+    dev = q.device
+    q_block = min(q_block, S)
+    while S % q_block:
+        q_block //= 2
+    kv_idx = torch.arange(S, device=dev)
+    tl = true_len.to(device=dev, dtype=torch.long)[:, None, None]
+    key_real = kv_idx[None, None, :] < tl                        # [B, 1, S]
+    colsum = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    kf = k.float()
+    for q0 in range(0, S, q_block):
+        q_idx = q0 + torch.arange(q_block, device=dev)
+        logits = torch.einsum("bhqd,bhkd->bhqk",
+                              q[:, :, q0:q0 + q_block].float(), kf) * scale
+        in_tail = ((q_idx[None, :, None] >= tl - w)
+                   & (kv_idx[None, None, :] >= tl - w)
+                   & (kv_idx[None, None, :] > q_idx[None, :, None]))
+        score_mask = key_real & ~in_tail                          # [B, qb, S]
+        probs = torch.softmax(torch.where(score_mask[:, None], logits,
+                                          NEG_INF), dim=-1)
+        row_real = (q_idx[None, :] < tl[:, :, 0])[:, None, :, None]
+        colsum = colsum + (probs * row_real).sum(dim=2)
+    return colsum
 
 
 def _window_colsum(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor,

@@ -182,3 +182,42 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
         chip_smoke.main()
     assert e.value.code == 1
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_phase_h_configuration():
+    """(h) at 1B: Quest + jump at the main path's knobs with 16-token
+    pages and two dense skip layers, capacity 12160 (the 4096-token
+    prompt bucket plus 7950 new tokens, rounded up to 128); the first
+    waves come in pairs of consecutive steps inside the 384 tokens and the
+    300 steps of the sync check; prefills launch only the unscored
+    flash_prefill; chunked prefills launch it per chunk, and both kernels
+    in their finalize passes only for the methods that rank by cumulative
+    attention."""
+    from scope_tpu_torch.compression.host_sched import QuestHostScheduler
+    from scope_tpu_torch.models import llama
+    spec, comp, ecfg, n_prompt = chip_smoke.quest_config(False)
+    assert (spec.name, spec.num_layers, spec.head_dim) == (
+        "llama-3.2-1b", 16, 64)
+    assert (comp.method, comp.decoding_metric, comp.chunk_size,
+            comp.quest_skip_layers, comp.max_capacity_prompt,
+            comp.decoding_window_size, comp.decoding_recent_size,
+            comp.delta) == ("quest", "jump", 16, 2, 2048, 512, 256, 30)
+    assert ecfg.cache_capacity(comp) == chip_smoke.QUEST_CAPACITY == 12160
+    assert n_prompt == 3000 and ecfg.bucket_for(n_prompt) == 4096
+    st = llama.derive_statics(spec, comp, ecfg)
+    sched = QuestHostScheduler(comp, 16, n_prompt, st.caps.keep_cap)
+    fires = [s for s in range(chip_smoke.N_NEW - 1)
+             if sched.plan_step().fire_any]
+    assert fires[:2] == [296, 297] and fires[1] < 300
+    assert chip_smoke.per_prefill(spec, comp) == {"flash_prefill": 16,
+                                                  "colsum_scores": 0}
+    # Two prompts of 3000 and 2100 tokens in chunks of 512: 6 + 5 chunks
+    # of 16 unscored launches, and a scored finalize pass each for h2o
+    # and pyramidkv.
+    for method, n in (("h2o", 32), ("pyramidkv", 32), ("snapkv", 0),
+                      ("quest", 0)):
+        assert chip_smoke.per_chunked(
+            spec, comp.replace(method=method), [3000, 2100], 512) == {
+            "flash_prefill": 16 * 11 + n, "colsum_scores": n}
+    assert ecfg.bucket_for(chip_smoke.SERVE_H["prompt"][1]) == 4096
+    assert 4096 % chip_smoke.PREFILL_CHUNK == 0

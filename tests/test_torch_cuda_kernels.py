@@ -162,3 +162,29 @@ def test_flash_is_deterministic_on_card(dtype):
     again = port.flash_prefill(q, k, v, ttl, window_size=W, need_scores=True)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b2_ragged", "tile_edge", "pad_tiles",
+                                  "d128_ragged"])
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_prefill_scores_only_on_card(case, dtype):
+    """Chunked prefill's finalize scores: the kernel pair (scored
+    flash_prefill over V = K, then colsum_scores) on the card against the
+    blocked plain version on the CPU, ragged rows; one launch of each."""
+    from scope_tpu_torch.ops.attention import prefill_scores_only
+    _need_card()
+    B, H, S, D, tl, _ = CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, _ = (x.to(dt) for x in make(B, H, S, D, seed=len(case)))
+    ttl = torch.tensor(tl, dtype=torch.int32)
+    launches = (port.flash_prefill.launches, port.colsum_scores.launches)
+    got = prefill_scores_only(q.cuda(), k.cuda(), ttl.cuda(), window_size=W,
+                              need_colsum_all=True)
+    assert (port.flash_prefill.launches, port.colsum_scores.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    ref = prefill_scores_only(q.float(), k.float(), ttl, window_size=W,
+                              need_colsum_all=True)
+    torch.testing.assert_close(got.colsum_all.cpu(), ref.colsum_all,
+                               rtol=1e-3, atol=1e-3)
+    assert got.colsum_window is None

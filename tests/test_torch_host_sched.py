@@ -370,9 +370,13 @@ def test_not_host_schedulable_raises():
 
 @pytest.mark.parametrize("method,metric", [("quest", "jump")])
 def test_unported_methods_raise(method, metric):
+    # Quest is ported (tests/test_torch_quest_generate.py); Mistral's
+    # sliding window is not, whatever the method.
     comp = CompressionConfig(**dict(comp_kw(method, metric), beta=4))
+    assert HostScheduledDecoder(TSPEC, comp, EngineConfig(**ENGINE)).quest
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HostScheduledDecoder(TSPEC, comp, EngineConfig(**ENGINE))
+        HostScheduledDecoder(get_spec("tiny-mistral"), comp,
+                             EngineConfig(**ENGINE))
 
 
 def test_ragged_prompts_raise(weights):

@@ -244,12 +244,16 @@ def test_compress_prefill_matches_jax(method, S, true_len):
 
 @pytest.mark.parametrize("method", ["quest"])
 def test_unported_methods_raise(method):
-    k = torch.zeros((1, 1, 128, 8))
+    # Quest was the last method the port refused: its prefill keeps the
+    # whole prompt, as fullkv's does, and every method now compresses.
+    k = torch.randn((1, 1, 128, 8))
     comp = tconfig.CompressionConfig(method=method, max_capacity_prompt=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpol.compress_prefill(comp, 0, 1, k, k, k,
-                              tattn.PrefillScores(None, None),
-                              torch.tensor([100]), 128)
+    res = tpol.compress_prefill(comp, 0, 1, k, k, k,
+                                tattn.PrefillScores(None, None),
+                                torch.tensor([100]), 256)
+    assert torch.equal(res.cache_k[:, :, :128], k)
+    assert res.length.tolist() == [100] and res.cache_k.shape[2] == 256
+    assert set(tconfig.PREFILL_METHODS) >= {"quest", "h2o", "headwise"}
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +419,6 @@ def test_unported_model_features_raise():
     spec, jc, je, jp, tspec, tc, te, tp = _tiny(True)
     for s, c in ((tregistry.get_spec("tiny-mistral"), tc),
                  (tregistry.get_spec("tiny-qwen2"), tc),
-                 (tspec, tc.replace(method="quest")),
                  (tspec, tc.replace(mistral_window_parity=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tllama.prefill(s, c, te, tp, torch.zeros((1, 128)),

@@ -185,10 +185,12 @@ def test_serving_rejects_mismatched_method_metric(weights):
 
 
 @pytest.mark.parametrize("kw,comp", [
-    (dict(prefill_chunk=32), {}), (dict(mesh=object()), {}),
-    ({}, dict(method="quest")),
+    (dict(prefill_chunk=32, mesh=object()), {}), (dict(mesh=object()), {}),
+    ({}, dict(method="quest", mistral_window_parity=True)),
     ({}, dict(method="allkv", mistral_window_parity=True))])
 def test_serving_refuses_what_is_not_ported(weights, kw, comp):
+    # Chunked admission and Quest are ported; a mesh and the Mistral
+    # window parity are not, whatever they come with.
     tc = configs("fixed")[2].replace(**comp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(TSPEC, tc, configs()[3], weights[1], device="cpu", **kw)
